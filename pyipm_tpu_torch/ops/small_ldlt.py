@@ -1,0 +1,127 @@
+"""Batched small LDL^T factorization and solve: the Hopper kernels of
+``csrc/small_ldlt.cu`` and their plain PyTorch versions.
+
+Counterpart of ``ldlt_factor_small`` / ``ldlt_solve_small`` in
+``pyipm_tpu/ops/pallas_ldlt.py`` (the Pallas ``_factor_kernel`` and
+``_solve_kernel``), batch first: A is (B, n, n), row-major, n <= 128.
+
+The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
+kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
+counts kernel launches per kernel; nothing else adds to it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pyipm_tpu_torch.ops import _build
+
+MAX_N = 128
+LAUNCHES = {"factor": 0, "solve": 0}
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+# ----------------------------------------------------------------------
+# plain versions: same column order and zero-pivot guard as the kernels
+def ldlt_factor_small_ref(A):
+    """Right-looking unpivoted LDL^T of (B, n, n) -> (L (B, n, n) unit
+    lower, d (B, n)).  A zero pivot divides by 1 (pallas_ldlt.py:73-75)."""
+    B, n, _ = A.shape
+    W = A.clone()
+    L = torch.zeros_like(A)
+    d = A.new_zeros((B, n))
+    for j in range(n):
+        dj = W[:, j, j].clone()
+        safe = torch.where(torch.abs(dj) > 0, dj, torch.ones_like(dj))
+        col = W[:, j + 1:, j] / safe[:, None]
+        L[:, j + 1:, j] = col
+        L[:, j, j] = 1
+        d[:, j] = dj
+        W[:, j + 1:, j + 1:] -= ((col[:, :, None] * col[:, None, :])
+                                 * dj[:, None, None])
+    return L, d
+
+
+def ldlt_solve_small_ref(L, d, b):
+    """x = L^-T diag(d)^-1 L^-1 b for (B, n, n), (B, n), (B, n): forward
+    substitution, zero-guarded diagonal scale, backward substitution."""
+    n = b.shape[-1]
+    y = torch.zeros_like(b)
+    for j in range(n):
+        y[:, j] = b[:, j] - torch.sum(L[:, j, :j] * y[:, :j], dim=-1)
+    z = y / torch.where(torch.abs(d) > 0, d, torch.ones_like(d))
+    x = torch.zeros_like(b)
+    for j in reversed(range(n)):
+        x[:, j] = z[:, j] - torch.sum(L[:, j + 1:, j] * x[:, j + 1:], dim=-1)
+    return x
+
+
+# ----------------------------------------------------------------------
+def _check(name, t, shape, dtype, device):
+    if t.dtype != dtype or t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
+                        f"float64 matching the other operands")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ldlt_factor_small(A):
+    """(B, n, n) -> (L, d).  CUDA: the hand-written kernel; CPU: plain."""
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"A must be (B, n, n), got {tuple(A.shape)}")
+    B, n, _ = A.shape
+    if n > MAX_N:
+        raise ValueError(f"n = {n} > {MAX_N}: not a small system")
+    _check("A", A, (B, n, n), A.dtype, A.device)
+    if A.device.type == "cpu":
+        return ldlt_factor_small_ref(A)
+    if A.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {A.device}")
+    L = torch.empty_like(A)
+    d = A.new_empty((B, n))
+    if B == 0:
+        return L, d
+    lib = _build.load()
+    fn = getattr(lib, f"pyipm_ldlt_factor_{_DTYPES[A.dtype]}")
+    with torch.cuda.device(A.device):
+        code = fn(A.data_ptr(), L.data_ptr(), d.data_ptr(), B, n,
+                  _stream(A.device))
+    _build.check(lib, code, "ldlt_factor_small")
+    LAUNCHES["factor"] += 1
+    return L, d
+
+
+def ldlt_solve_small(L, d, b):
+    """(B, n, n), (B, n), (B, n) -> x (B, n).  CUDA: the hand-written
+    kernel; CPU: plain."""
+    if L.dim() != 3 or L.shape[1] != L.shape[2]:
+        raise ValueError(f"L must be (B, n, n), got {tuple(L.shape)}")
+    B, n, _ = L.shape
+    if n > MAX_N:
+        raise ValueError(f"n = {n} > {MAX_N}: not a small system")
+    _check("L", L, (B, n, n), L.dtype, L.device)
+    _check("d", d, (B, n), L.dtype, L.device)
+    _check("b", b, (B, n), L.dtype, L.device)
+    if L.device.type == "cpu":
+        return ldlt_solve_small_ref(L, d, b)
+    if L.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {L.device}")
+    x = torch.empty_like(b)
+    if B == 0:
+        return x
+    lib = _build.load()
+    fn = getattr(lib, f"pyipm_ldlt_solve_{_DTYPES[L.dtype]}")
+    with torch.cuda.device(L.device):
+        code = fn(L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(),
+                  B, n, _stream(L.device))
+    _build.check(lib, code, "ldlt_solve_small")
+    LAUNCHES["solve"] += 1
+    return x

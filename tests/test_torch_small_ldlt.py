@@ -1,0 +1,122 @@
+"""The port's batched small LDL^T (pyipm_tpu_torch/ops/small_ldlt.py)
+against the JAX package's Pallas kernels and plain-JAX factorizations, on
+identical numpy-seeded inputs.
+
+On the CPU the port's wrappers take the plain PyTorch versions; the Pallas
+kernel bodies run in interpret mode, as tests/test_pallas_ldlt.py runs
+them.  The hand-written CUDA kernels are compared with the plain versions
+in tests/test_torch_cuda_kernels.py, on the card.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from pyipm_tpu.ops import pallas_ldlt as pk  # noqa: E402
+from pyipm_tpu.ops.linalg import ldlt_solve_inv, ldlt_unblocked  # noqa: E402
+from pyipm_tpu_torch.ops import small_ldlt as sl  # noqa: E402
+
+
+def _rand_sym(rng, B, n):
+    A = rng.standard_normal((B, n, n))
+    return (A + np.swapaxes(A, 1, 2)) / 2 + np.eye(n) * (n / 4)
+
+
+@pytest.mark.parametrize("B,n", [(128, 16), (130, 36), (128, 48)])
+def test_plain_factor_matches_pallas_kernel(rng, B, n):
+    A = _rand_sym(rng, B, n).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        Lk, dk = pk.batched_ldlt_factor(jnp.asarray(A))
+    L, d = sl.ldlt_factor_small(torch.as_tensor(A))
+    L, d, Lk, dk = L.numpy(), d.numpy(), np.asarray(Lk), np.asarray(dk)
+    # tolerances of test_pallas_ldlt.py:33-42; the same right-looking
+    # column order, so the pivots agree to f32 accumulation differences
+    np.testing.assert_allclose(d, dk, rtol=5e-3, atol=1e-3)
+    np.testing.assert_allclose(np.tril(L), np.tril(Lk), rtol=5e-3, atol=1e-3)
+    rec = np.einsum("bij,bj,bkj->bik", L, d, L)
+    scale = np.max(np.abs(A))
+    np.testing.assert_allclose(rec, A, atol=5e-5 * scale * n, rtol=1e-4)
+    np.testing.assert_array_equal(d < 0, dk < 0)
+
+
+@pytest.mark.parametrize("B,n", [(128, 16), (130, 36), (128, 48)])
+def test_plain_solve_matches_pallas_kernel(rng, B, n):
+    A = _rand_sym(rng, B, n).astype(np.float32)
+    b = rng.standard_normal((B, n)).astype(np.float32)
+    Lr, dr = jax.vmap(ldlt_unblocked)(jnp.asarray(A))
+    with pltpu.force_tpu_interpret_mode():
+        xk = np.asarray(pk.batched_ldlt_solve(Lr, dr, jnp.asarray(b)))
+    x = sl.ldlt_solve_small(torch.tensor(np.asarray(Lr)),
+                            torch.tensor(np.asarray(dr)),
+                            torch.as_tensor(b)).numpy()
+    # tolerance of test_pallas_ldlt.py:54-56 (reduction order differs)
+    np.testing.assert_allclose(x, xk, rtol=2e-3, atol=6e-3)
+
+
+@pytest.mark.parametrize("B,n", [(8, 16), (8, 36), (4, 48)])
+def test_f64_matches_plain_jax(rng, B, n):
+    """float64 against ldlt_unblocked / ldlt_solve_inv, <= 1e-10 relative;
+    half the instances made indefinite."""
+    A = _rand_sym(rng, B, n)
+    A[::2] -= (n / 2) * np.eye(n)
+    b = rng.standard_normal((B, n))
+    Lr, dr = jax.vmap(ldlt_unblocked)(jnp.asarray(A))
+    xr = np.asarray(ldlt_solve_inv(Lr, dr, jnp.asarray(b)))
+    Lr, dr = np.asarray(Lr), np.asarray(dr)
+    L, d = sl.ldlt_factor_small(torch.as_tensor(A))
+    x = sl.ldlt_solve_small(L, d, torch.as_tensor(b)).numpy()
+    L, d = L.numpy(), d.numpy()
+    np.testing.assert_array_equal(d < 0, dr < 0)
+    np.testing.assert_allclose(d, dr, rtol=1e-10, atol=0)
+    np.testing.assert_allclose(L, Lr, rtol=1e-10, atol=1e-10 * np.abs(Lr).max())
+    np.testing.assert_allclose(x, xr, rtol=1e-10, atol=1e-10 * np.abs(xr).max())
+
+
+def test_zero_pivot_guard_matches_jax():
+    """A zero pivot divides by 1 in both the factorization and the
+    diagonal scale of the solve, as the Pallas kernels do."""
+    A = np.array([[[0.0, 1.0, 2.0], [1.0, 0.0, 3.0], [2.0, 3.0, 1.0]],
+                  [[4.0, 2.0, 0.0], [2.0, 1.0, 5.0], [0.0, 5.0, 2.0]]],
+                 np.float32)
+    b = np.array([[1.0, -1.0, 2.0], [0.5, 1.0, -2.0]], np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        Lk, dk = pk.batched_ldlt_factor(jnp.asarray(A))
+        xk = pk.batched_ldlt_solve(Lk, dk, jnp.asarray(b))
+    L, d = sl.ldlt_factor_small(torch.as_tensor(A))
+    x = sl.ldlt_solve_small(L, d, torch.as_tensor(b))
+    assert float(d[0, 0]) == 0.0 and float(d[1, 1]) == 0.0
+    np.testing.assert_array_equal(d.numpy(), np.asarray(dk))
+    np.testing.assert_array_equal(np.tril(L.numpy()), np.tril(np.asarray(Lk)))
+    np.testing.assert_allclose(x.numpy(), np.asarray(xk), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_cpu_tensors_take_the_plain_versions(rng):
+    A = torch.as_tensor(_rand_sym(rng, 3, 5))
+    before = dict(sl.LAUNCHES)
+    L, d = sl.ldlt_factor_small(A)
+    x = sl.ldlt_solve_small(L, d, torch.ones(3, 5, dtype=torch.float64))
+    Lr, dr = sl.ldlt_factor_small_ref(A)
+    assert torch.equal(L, Lr) and torch.equal(d, dr)
+    assert torch.equal(x, sl.ldlt_solve_small_ref(L, d, torch.ones_like(x)))
+    assert sl.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "n"])
+def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
+    A = torch.eye(4).repeat(2, 1, 1)
+    if bad == "dtype":
+        A, err = A.to(torch.float16), TypeError
+    elif bad == "shape":
+        A, err = A[:, :, :3], ValueError
+    elif bad == "contiguous":
+        A, err = A.transpose(0, 1), ValueError
+    else:
+        A, err = torch.eye(130).repeat(1, 1, 1), ValueError
+    with pytest.raises(err):
+        sl.ldlt_factor_small(A)
