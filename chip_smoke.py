@@ -4,14 +4,26 @@
 
 Phases, each raising on failure:
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the hand-written kernels from pyipm_tpu_torch/csrc;
-  3. kernels against their plain PyTorch versions on the card, f32 and f64;
-  4. the slice: the 10,000-QP float32 fleet through ``solve_batch`` on
+  2. build: compile every hand-written kernel source of
+     pyipm_tpu_torch/csrc, one nvcc per source, all at once;
+  3. kernels 1-2 (batched small LDL^T factor and solve) against their
+     plain PyTorch versions on the card, f32 and f64;
+  4. slice A: the 10,000-QP float32 fleet through ``solve_batch`` on
      cuda:0, launch counters reset just before the timed solve;
   5. the same first 64 instances on CPU tensors (the plain path) against
-     the card's results.
-The line before the last is the kernels' JSON record; the last line is
-the JSON result.  Needs one CUDA card and the repository checkout.
+     the card's results;
+  6. kernels 3-5 (panel LDL^T, backward panel and superblock sweeps)
+     against their plain versions on the card, f32 and f64, at the K = 4352
+     factors (npad 5120) and at K = 1900 (npad 2048);
+  7. the single-shot K = 4352 KKT factor+solve (``reg_solve_kkt``,
+     want_solver=False), timed;
+  8. slice B: the D = 4096, M = 256 dense NLP through ``solve`` on cuda:0,
+     with the 'condensed' and with the 'ldlt' linear solver, counters
+     reset just before each timed solve;
+  9. a D = 1000, M = 64 dense NLP on the card and on CPU tensors.
+The line before the last is the kernels' JSON record, the one before it
+the card's name and power limit; the last line is the JSON result.  Needs
+one CUDA card and the repository checkout.
 """
 
 from __future__ import annotations
@@ -28,6 +40,13 @@ SEED, B, D, NLIN = 42, 10_000, 16, 4
 N_CROSS = 64
 KERNEL_SHAPES = ((10_000, 16), (10_000, 36), (129, 36), (1, 16), (512, 128))
 TIMED_SHAPES = ((10_000, 16), (10_000, 36))
+# the dense NLP instance of phase 8, also solved by scripts/*dense_nlp*.py
+DENSE_D, DENSE_M, DENSE_H = 4096, 256, 256
+DENSE_SEED, DENSE_X0 = 0, 1e-3
+CROSS_D, CROSS_M = 1000, 64
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
 
 
 def phase(name):
@@ -48,6 +67,7 @@ def rand_sym(gen, Bn, n, dtype, device):
 
 
 def cuda_ms(fn, reps):
+    """Median of ``reps`` CUDA-event timings of one call, after a warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -62,8 +82,23 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
-def check_kernels(sl, device):
-    """Phase 3; returns per-kernel error and timing records."""
+def bound(nbytes, flops, peak_flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / peak_flops * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def reset(*counters):
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
+# ----------------------------------------------------------------------
+def check_small_kernels(sl, device):
+    """Phase 3; returns per-kernel error, timing and bound records."""
     gen = torch.Generator().manual_seed(SEED)
     err = {"factor": 0.0, "solve": 0.0}
     for dtype in (torch.float32, torch.float64):
@@ -113,17 +148,245 @@ def check_kernels(sl, device):
         A = rand_sym(gen, Bn, n, torch.float32, device)
         b = torch.randn(Bn, n, generator=gen).to(device)
         L, d = sl.ldlt_factor_small(A)
+        # library yardstick of the solve: LAPACK-style LDL^T solve with
+        # identity pivots (timed here only, never called by the port)
+        LD = torch.tril(L, -1) + torch.diag_embed(d)
+        piv = torch.arange(1, n + 1, dtype=torch.int32,
+                           device=device).expand(Bn, n).contiguous()
+        # (it takes seconds per call at these shapes: few reps, n = 16 only)
+        lib_solve = None
+        if n == 16:
+            try:
+                lib_solve = cuda_ms(lambda: torch.linalg.ldl_solve(
+                    LD, piv, b[..., None]), 2)
+            except RuntimeError as exc:
+                print(f"  torch.linalg.ldl_solve unavailable: {exc}",
+                      flush=True)
+        f4 = 4
         times[n] = dict(
             factor=cuda_ms(lambda: sl.ldlt_factor_small(A), 50),
             factor_plain=cuda_ms(lambda: sl.ldlt_factor_small_ref(A), 10),
             solve=cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), 50),
-            solve_plain=cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 10))
+            solve_plain=cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 10),
+            solve_library=lib_solve,
+            factor_bound=bound(Bn * (2 * n * n + n) * f4,
+                               Bn * 2 * n ** 3 / 3, F32_FLOPS),
+            solve_bound=bound(Bn * (n * n + 3 * n) * f4,
+                              Bn * 2 * n * n, F32_FLOPS))
         t = times[n]
         print(f"  f32 B={Bn} n={n}: factor {t['factor']:.4f} ms "
-              f"(plain {t['factor_plain']:.4f} ms), solve {t['solve']:.4f} ms "
-              f"(plain {t['solve_plain']:.4f} ms), CUDA events, median",
+              f"(plain {t['factor_plain']:.4f} ms, bound "
+              f"{t['factor_bound'][0]:.5f} ms), solve {t['solve']:.4f} ms "
+              f"(plain {t['solve_plain']:.4f} ms, ldl_solve {lib_solve} ms, "
+              f"bound {t['solve_bound'][0]:.5f} ms), CUDA events, median",
               flush=True)
     return err, times
+
+
+# ----------------------------------------------------------------------
+def kkt_matrix_bench(D_, M_, dtype, device, seed=0):
+    """The single-shot KKT system of the JAX package's bench.py:60-66 from
+    a numpy seed: [[G G'/D + 0.5 I, Je], [Je', 0]] and a random rhs."""
+    rng = np.random.default_rng(seed)
+    G = torch.as_tensor(rng.standard_normal((D_, D_)) / np.sqrt(D_),
+                        device=device)
+    Je = torch.as_tensor(rng.standard_normal((D_, M_)) / np.sqrt(D_),
+                         device=device)
+    g = torch.as_tensor(rng.standard_normal(D_ + M_), device=device)
+    K = D_ + M_
+    H = torch.zeros((K, K), dtype=torch.float64, device=device)
+    H[:D_, :D_] = G @ G.T + 0.5 * torch.eye(D_, dtype=torch.float64,
+                                             device=device)
+    H[:D_, D_:] = Je
+    H[D_:, :D_] = Je.T
+    return H.to(dtype), g.to(dtype)
+
+
+def exact_zero_pivot_panel(n, seed):
+    """A panel with exact zero pivots whose factorization is exact in
+    either type (small integers, pivots in {0, +-1, +-2})."""
+    rng = np.random.default_rng(seed)
+    Lr = np.tril(rng.integers(-1, 2, (n, n)), -1) + np.eye(n)
+    d = rng.choice([1.0, -1.0, 2.0, -2.0], n)
+    d[[1, n // 3, n - 5]] = 0.0
+    A = (Lr * np.where(d != 0, d, 1.0)) @ Lr.T
+    A[d == 0, d == 0] -= 1.0
+    return A
+
+
+def rel_norm(x, xr):
+    return float(torch.linalg.vector_norm((x - xr).double())
+                 / torch.linalg.vector_norm(xr.double()))
+
+
+def sweep_bound(K, w):
+    """bound() of one f32 backward sweep of a K-row system at block width
+    w.  The recurrence needs, of each block column that holds real rows,
+    the slab below it down to row K (the grid padding past K is an
+    identity tail) and the strict lower triangle of its diagonal block's
+    unit-lower inverse; plus z and x.  Two operations per entry."""
+    rows = [min(w, K - k0) for k0 in range(0, K, w)]
+    slab = sum(r * (K - k0 - r) for k0, r in zip(range(0, K, w), rows))
+    inv = sum(r * (r - 1) // 2 for r in rows)
+    return bound((slab + inv + 2 * K) * 4, 2 * (slab + inv), F32_FLOPS)
+
+
+def check_large_kernels(ll, lin, device):
+    """Phase 6; returns per-kernel error, timing and bound records at the
+    main path's shapes (f32, K = 4352)."""
+    gen = torch.Generator().manual_seed(SEED)
+    rec = {}
+    for dtype in (torch.float32, torch.float64):
+        for n in (128, 64):
+            for kind in ("pd", "indef", "zero_pivot"):
+                if kind == "zero_pivot":
+                    A = torch.as_tensor(exact_zero_pivot_panel(n, n),
+                                        dtype=dtype, device=device)
+                else:
+                    A = rand_sym(gen, 7, n, dtype, device)[
+                        3 if kind == "indef" else 0].contiguous()
+                L, d = ll.panel_ldlt(A)
+                Lr, dr = ll.panel_ldlt_ref(A)
+                torch.cuda.synchronize()
+                if not (torch.equal(L, Lr) and torch.equal(d, dr)):
+                    raise AssertionError(
+                        f"panel_ldlt differs from its plain version: n={n} "
+                        f"{dtype} {kind}, max|dd|="
+                        f"{float((d - dr).abs().max())}")
+        print(f"  ok panel_ldlt {str(dtype):14s} n=128, 64 (pd, indef, "
+              f"zero pivot): bitwise equal", flush=True)
+
+    sweep_err = {"bwd_sweep_panels": 0.0, "bwd_sweep_blocks": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        tol = 1e-5 if dtype == torch.float32 else 1e-10
+        for Dk, Mk in ((4096, 256), (1772, 128)):
+            H, g = kkt_matrix_bench(Dk, Mk, dtype, device)
+            Hs, dsc = lin.ruiz_scale(H[None])
+            Hs = Hs[0]
+            Lp, dp, invp = lin.ldlt_factor_panels(Hs)
+            Lb, db, invb = lin.ldlt_factor_blocks(Hs, group=8,
+                                                  pad_to_grid=True)
+            npad = Lp.shape[0]
+            z = torch.randn(npad, generator=gen,
+                            dtype=torch.float64).to(dtype).to(device)
+            for name, fn, Lf, inv in (
+                    ("bwd_sweep_panels", ll.bwd_sweep_panels, Lp, invp),
+                    ("bwd_sweep_blocks", ll.bwd_sweep_blocks, Lb, invb)):
+                x = fn(Lf, z, inv)
+                xr = ll.bwd_sweep_ref(Lf, z, inv)
+                x2 = fn(Lf, z, inv)
+                torch.cuda.synchronize()
+                e = rel_norm(x, xr)
+                if not e <= tol:
+                    raise AssertionError(f"{name} K={Dk + Mk} {dtype}: "
+                                         f"relative error {e} > {tol}")
+                if not torch.equal(x, x2):
+                    raise AssertionError(f"{name} is not deterministic")
+                if dtype == torch.float32 and Dk == 4096:
+                    sweep_err[name] = float((x - xr).abs().max())
+                print(f"  ok {name} {str(dtype):14s} K={Dk + Mk} npad={npad}"
+                      f" w={inv.shape[-1]}: |x-xref|/|xref|={e:.3e}",
+                      flush=True)
+            del Lp, dp, invp, Lb, db, invb, H, Hs
+
+    # timings at the main path's shapes: f32, K = 4352 (npad 5120)
+    H, g = kkt_matrix_bench(4096, 256, torch.float32, device)
+    Hs = lin.ruiz_scale(H[None])[0][0]
+    Lp, dp, invp = lin.ldlt_factor_panels(Hs)
+    Lb, db, invb = lin.ldlt_factor_blocks(Hs, group=8, pad_to_grid=True)
+    npad = Lp.shape[0]
+    z = torch.randn(npad, generator=gen).to(device)
+    panel = Hs[:128, :128].contiguous()
+    Lq, dq = ll.panel_ldlt(panel)
+    rec["panel_ldlt"] = dict(
+        max_abs_err=float(torch.maximum((Lq - ll.panel_ldlt_ref(panel)[0])
+                                        .abs().max(),
+                                        (dq - ll.panel_ldlt_ref(panel)[1])
+                                        .abs().max())),
+        ms=cuda_ms(lambda: ll.panel_ldlt(panel), 200),
+        plain_ms=cuda_ms(lambda: ll.panel_ldlt_ref(panel), 10),
+        library_ms=None,
+        bound=bound(2 * 128 * 128 * 4 + 128 * 4, 2 * 128 ** 3 / 3,
+                    F32_FLOPS),
+        shape=[128, 128])
+    for name, fn, Lf, inv in (
+            ("bwd_sweep_panels", ll.bwd_sweep_panels, Lp, invp),
+            ("bwd_sweep_blocks", ll.bwd_sweep_blocks, Lb, invb)):
+        Lt = Lf.mT
+        rec[name] = dict(
+            max_abs_err=sweep_err[name],
+            ms=cuda_ms(lambda: fn(Lf, z, inv), 50),
+            plain_ms=cuda_ms(lambda: ll.bwd_sweep_ref(Lf, z, inv), 20),
+            library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+                Lt, z[:, None], upper=True, unitriangular=True), 20),
+            bound=sweep_bound(Hs.shape[0], inv.shape[-1]),
+            shape=[npad, inv.shape[-1]])
+    for name, r in rec.items():
+        print(f"  f32 {name} at {r['shape']}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound'][0]:.5f} ms by {r['bound'][1]}), CUDA events, "
+              f"median", flush=True)
+    return rec
+
+
+def kkt_single_shot(lin, ll, cfg, device, reps=10):
+    """Phase 7: median ms and GFLOP/s of one K = 4352 inertia-corrected
+    factor+solve, and its relative residual."""
+    Dk, Mk = 4096, 256
+    K = Dk + Mk
+    H, g = kkt_matrix_bench(Dk, Mk, torch.float32, device, seed=1)
+    kw = dict(nvar=Dk, neq=Mk, nineq=0, eps=cfg.eps, reg_coef=cfg.reg_coef,
+              eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0, max_retries=4,
+              want_solver=False, block=cfg.ldlt_block)
+    zero = torch.zeros(1, device=device)
+    H1, g1 = H[None], g[None]
+    run = lambda: lin.reg_solve_kkt(H1, g1, zero, zero + 0.1, **kw)  # noqa
+    reset(ll.LAUNCHES)
+    dz, delta_new, retries = run()
+    torch.cuda.synchronize()
+    launches = dict(ll.LAUNCHES)
+    ms = cuda_ms(run, reps)
+    r = H.double() @ dz[0].double() - g.double()
+    res = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(
+        g.double()))
+    bkw = float(torch.linalg.vector_norm(r) / (
+        torch.linalg.matrix_norm(H.double())
+        * torch.linalg.vector_norm(dz[0].double())
+        + torch.linalg.vector_norm(g.double())))
+    gflops = 2 * K ** 3 / 3 / (ms * 1e-3) / 1e9
+    print(f"  K={K} f32 reg_solve_kkt(want_solver=False, max_retries=4): "
+          f"{ms:.4f} ms median of {reps} (CUDA events), {gflops:.1f} GFLOP/s "
+          f"at 2K^3/3, |H dz - g|/|g| {res:.3e}, backward error {bkw:.3e}, "
+          f"delta_new {float(delta_new[0]):.3e}, retries {int(retries[0])}, "
+          f"launches per call {launches}", flush=True)
+    if not (np.isfinite(res) and bkw < 1e-5):
+        raise AssertionError(f"K={K} solve: backward error {bkw}")
+    return dict(ms=ms, gflops=gflops, residual=res, backward_error=bkw,
+                launches=launches)
+
+
+def dense_path(solve, cfg, problem, data, device, counters, _sync):
+    """Phase 8 for one solver: warm-up from 0, timed solve from DENSE_X0."""
+    Dd = problem.nvar
+    solve(problem, torch.zeros(Dd, device=device), cfg, params=data)
+    x0 = torch.full((Dd,), DENSE_X0, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset(_sync.COUNTS, *counters)
+    t0 = time.perf_counter()
+    res = solve(problem, x0, cfg, params=data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(signal=int(res.signal), iters=int(res.iter_count),
+               kkt_max=float(res.kkt.max()), fval=float(res.fval),
+               wall_s=wall, host_syncs=_sync.COUNTS["host_syncs"],
+               flat_steps=_sync.COUNTS["flat_steps"],
+               reg_retries=int(res.reg_retries),
+               launches={k: v for c in counters for k, v in c.items()},
+               max_memory_bytes=torch.cuda.max_memory_allocated(device))
+    if tuple(res.x.shape) != (Dd,) or not bool(torch.isfinite(res.x).all()):
+        raise AssertionError("dense NLP solution is not a finite (D,) array")
+    return out
 
 
 def main() -> int:
@@ -131,11 +394,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 1
-    from pyipm_tpu_torch import IPMConfig, _sync, solve_batch
+    from pyipm_tpu_torch import IPMConfig, _sync, solve, solve_batch
+    from pyipm_tpu_torch.config import matmul_precision
     from pyipm_tpu_torch.models.random_nlp import (
-        make_qp_problem, sample_qp_batch,
+        make_dense_nlp_problem, make_qp_problem, sample_dense_nlp,
+        sample_qp_batch,
     )
-    from pyipm_tpu_torch.ops import _build, small_ldlt as sl
+    from pyipm_tpu_torch.ops import _build, large_ldlt as ll, linalg as lin
+    from pyipm_tpu_torch.ops import small_ldlt as sl
 
     device = torch.device("cuda:0")
 
@@ -147,19 +413,22 @@ def main() -> int:
     smi = smi.splitlines()[0]
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, count "
-          f"{torch.cuda.device_count()}", flush=True)
+          f"{torch.cuda.device_count()}; {smi}", flush=True)
 
     phase("2 build")
     t0 = time.perf_counter()
-    path = _build.build(force=True)
+    path, log = _build.build(force=True, verbose=True)
     _build.load()
-    print(f"  built {path.name} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"  built {path.name} from {len(_build.sources())} sources in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
 
-    phase("3 kernels against their plain versions")
-    err, times = check_kernels(sl, device)
+    phase("3 kernels 1-2 against their plain versions")
+    err, times = check_small_kernels(sl, device)
 
-    phase("4 the slice: 10,000-QP float32 fleet on cuda:0")
+    phase("4 slice A: 10,000-QP float32 fleet on cuda:0")
     cfg = IPMConfig(float_dtype="float32", verbosity=0, Ktol=1e-4)
     problem = make_qp_problem(D, NLIN)
     data = sample_qp_batch(SEED, B, D, NLIN, dtype="float32", device=device)
@@ -169,9 +438,7 @@ def main() -> int:
     x0 = torch.as_tensor(1e-6 * rng.standard_normal((B, D)),
                          dtype=torch.float32, device=device)
     torch.cuda.synchronize()
-    for counts in (sl.LAUNCHES, _sync.COUNTS):
-        for k in counts:
-            counts[k] = 0
+    reset(sl.LAUNCHES, ll.LAUNCHES, _sync.COUNTS)
     t0 = time.perf_counter()
     res = solve_batch(problem, x0, cfg, params=data)
     torch.cuda.synchronize()
@@ -219,25 +486,100 @@ def main() -> int:
         raise AssertionError(f"iteration counts equal on {same_iters} < 58")
     if xerr_max > 1e-3:
         raise AssertionError(f"x differs by {xerr_max} > 1e-3 (1+|x|)")
+    del data, res, res_cpu
 
+    # the solver turns TF32 off itself; the direct calls below do too
+    with matmul_precision(cfg.matmul_precision):
+        phase("6 kernels 3-5 against their plain versions")
+        big = check_large_kernels(ll, lin, device)
+
+        phase("7 single-shot K = 4352 KKT factor+solve")
+        kkt = kkt_single_shot(lin, ll, cfg, device)
+
+    phase(f"8 slice B: dense NLP D={DENSE_D}, M={DENSE_M}, float32, cuda:0")
+    dproblem = make_dense_nlp_problem(DENSE_D, DENSE_M)
+    ddata = sample_dense_nlp(DENSE_SEED, DENSE_D, DENSE_M, DENSE_H,
+                             dtype="float32", device=device)
+    dense = {}
+    sweep_of = {"condensed": "bwd_sweep_blocks", "ldlt": "bwd_sweep_panels"}
+    for solver in ("condensed", "ldlt"):
+        dcfg = cfg.replace(linear_solver=solver)
+        r = dense_path(solve, dcfg, dproblem, ddata, device,
+                       (sl.LAUNCHES, ll.LAUNCHES), _sync)
+        dense[solver] = r
+        print(f"  {solver}: signal {r['signal']} iterations {r['iters']} "
+              f"max KKT {r['kkt_max']:.3e} f {r['fval']:.6f} wall "
+              f"{r['wall_s']:.4f} s host syncs {r['host_syncs']} flat steps "
+              f"{r['flat_steps']} reg retries {r['reg_retries']} launches "
+              f"{r['launches']} max_memory_allocated "
+              f"{r['max_memory_bytes']} B", flush=True)
+        if r["signal"] not in (1, 2):
+            raise AssertionError(f"{solver}: signal {r['signal']}")
+        if r["signal"] == 1 and r["kkt_max"] > cfg.Ktol:
+            raise AssertionError(f"{solver}: Ktol-converged with KKT "
+                                 f"{r['kkt_max']} > {cfg.Ktol}")
+        for k in ("panel_ldlt", sweep_of[solver]):
+            if r["launches"][k] == 0:
+                raise AssertionError(f"{solver}: {k} was not launched")
+    del ddata
+
+    phase(f"9 dense NLP D={CROSS_D}, M={CROSS_M}: card against CPU")
+    cproblem = make_dense_nlp_problem(CROSS_D, CROSS_M)
+    cross = {}
+    for dev in (device, torch.device("cpu")):
+        cdata = sample_dense_nlp(1, CROSS_D, CROSS_M, DENSE_H,
+                                 dtype="float32", device=dev)
+        cross[dev.type] = solve(cproblem, torch.full((CROSS_D,), 1e-3,
+                                                     device=dev),
+                                cfg, params=cdata)
+    cg, cc = cross["cuda"], cross["cpu"]
+    xerr = float((torch.abs(cg.x.cpu() - cc.x) / (1 + torch.abs(cc.x))).max())
+    print(f"  card: signal {int(cg.signal)} iterations {int(cg.iter_count)};"
+          f" CPU: signal {int(cc.signal)} iterations {int(cc.iter_count)}; "
+          f"max |dx|/(1+|x|) {xerr:.3e}", flush=True)
+    if int(cg.signal) != int(cc.signal) or int(cg.signal) not in (1, 2):
+        raise AssertionError("card and CPU signals differ or failed")
+    if int(cg.iter_count) != int(cc.iter_count):
+        raise AssertionError("card and CPU iteration counts differ")
+    if xerr > 1e-3:
+        raise AssertionError(f"x differs by {xerr} > 1e-3 (1+|x|)")
+
+    def row(name, replaces, source, launches_, rec_, shape):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": rec_["max_abs_err"], "ms": rec_["ms"],
+                "plain_ms": rec_["plain_ms"], "bound_ms": rec_["bound"][0],
+                "bound_by": rec_["bound"][1],
+                "library_ms": rec_["library_ms"], "shape": shape}
+
+    t16 = times[16]
+    small = "pyipm_tpu_torch/csrc/small_ldlt.cu"
+    path_launches = {s: dense[s]["launches"] for s in dense}
     record = {"kernels": [
-        {"name": "ldlt_factor_small", "route": "cuda",
-         "source": "pyipm_tpu_torch/csrc/small_ldlt.cu",
-         "replaces": "pyipm_tpu/ops/pallas_ldlt.py:49",
-         "launches": launches["factor"], "max_abs_err": err["factor"],
-         "ms": times[16]["factor"], "plain_ms": times[16]["factor_plain"],
-         "shape": [10_000, 16],
-         "ms_n36": times[36]["factor"],
-         "plain_ms_n36": times[36]["factor_plain"]},
-        {"name": "ldlt_solve_small", "route": "cuda",
-         "source": "pyipm_tpu_torch/csrc/small_ldlt.cu",
-         "replaces": "pyipm_tpu/ops/pallas_ldlt.py:92",
-         "launches": launches["solve"], "max_abs_err": err["solve"],
-         "ms": times[16]["solve"], "plain_ms": times[16]["solve_plain"],
-         "shape": [10_000, 16],
-         "ms_n36": times[36]["solve"],
-         "plain_ms_n36": times[36]["solve_plain"]},
-    ]}
+        row("ldlt_factor_small", "pyipm_tpu/ops/pallas_ldlt.py:49", small,
+            launches["factor"],
+            dict(max_abs_err=err["factor"], ms=t16["factor"],
+                 plain_ms=t16["factor_plain"], bound=t16["factor_bound"],
+                 library_ms=None), [B, 16]),
+        row("ldlt_solve_small", "pyipm_tpu/ops/pallas_ldlt.py:92", small,
+            launches["solve"],
+            dict(max_abs_err=err["solve"], ms=t16["solve"],
+                 plain_ms=t16["solve_plain"], bound=t16["solve_bound"],
+                 library_ms=t16["solve_library"]), [B, 16]),
+        row("panel_ldlt", "pyipm_tpu/ops/pallas_ldlt.py:198",
+            "pyipm_tpu_torch/csrc/panel_ldlt.cu",
+            sum(p["panel_ldlt"] for p in path_launches.values()),
+            big["panel_ldlt"], big["panel_ldlt"]["shape"]),
+        row("bwd_sweep_panels", "pyipm_tpu/ops/pallas_ldlt.py:523",
+            "pyipm_tpu_torch/csrc/bwd_sweep.cu",
+            path_launches["ldlt"]["bwd_sweep_panels"],
+            big["bwd_sweep_panels"], big["bwd_sweep_panels"]["shape"]),
+        row("bwd_sweep_blocks", "pyipm_tpu/ops/pallas_ldlt.py:386",
+            "pyipm_tpu_torch/csrc/bwd_sweep.cu",
+            path_launches["condensed"]["bwd_sweep_blocks"],
+            big["bwd_sweep_blocks"], big["bwd_sweep_blocks"]["shape"]),
+    ], "launches_by_path": {"fleet": launches, **path_launches},
+        "kkt_4352": kkt, "dense_nlp": dense}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

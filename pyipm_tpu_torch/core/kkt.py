@@ -87,6 +87,44 @@ def kkt_norms(problem: Problem, x, s, lda, mu, p):
     return torch.stack([k1, k2, k3, k4], dim=-1)
 
 
+def kkt_blocks(problem: Problem, x, s, lda, mu, p):
+    """The four KKT condition blocks (reference IPM.KKT, pyipm.py:958-991):
+    (B, D), (B, N), (B, M), (B, N); an absent block is (B,) zeros."""
+    D, M, N = problem.nvar, problem.neq, problem.nineq
+    r = grad(problem, x, s, lda, mu, p)
+    zero = x.new_zeros((x.shape[0],))
+    return (r[:, :D],
+            r[:, D:D + N] * s if N else zero,
+            r[:, D + N:D + N + M] if M else zero,
+            r[:, D + N + M:] if N else zero)
+
+
+def kkt_matrix(problem: Problem, x, s, lda, mu, p):
+    """Symmetric (B, K, K) primal-dual matrix, K = D+2N+M (reference
+    pyipm.py:816-844; JAX kkt.py:191-216):
+
+        [ d2L   0    Je   Ji ]
+        [  0   Sig   0    -I ]        Sig = diag(lda_i / (s+guard))
+        [ Je'   0    0     0 ]
+        [ Ji'  -I    0     0 ]
+
+    built as the upper triangle and mirrored, so a non-symmetric user d2f
+    behaves as in the reference."""
+    D, M, N = problem.nvar, problem.neq, problem.nineq
+    K = D + 2 * N + M
+    H = x.new_zeros((x.shape[0], K, K))
+    H[:, :D, :D] = torch.triu(problem.hess_lagrangian(x, lda, p))
+    if M:
+        H[:, :D, D + N:D + N + M] = problem.jac_ce(x, p)
+    if N:
+        H[:, :D, D + N + M:] = problem.jac_ci(x, p)
+        sig = lda[:, M:] / (s + _eps_of(x))
+        H[:, D:D + N, D:D + N] = torch.diag_embed(sig)
+        H[:, D:D + N, D + N + M:] = -torch.eye(N, dtype=x.dtype,
+                                                device=x.device)
+    return torch.triu(H) + torch.triu(H, 1).transpose(1, 2)
+
+
 def phi(problem: Problem, x, s, mu, nu, p):
     """l1-penalty merit with log-barrier (reference pyipm.py:670-694):
     phi = f + nu*(|ce|_1 + |ci - s|_1) - mu*sum(log s).

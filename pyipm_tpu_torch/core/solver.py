@@ -35,6 +35,7 @@ from pyipm_tpu_torch.core.linesearch import max_step_ftb, search, take
 from pyipm_tpu_torch.core.problem import Problem
 from pyipm_tpu_torch.core.updates import centrality_mu, nu_threshold
 from pyipm_tpu_torch.ops.condensed import condensed_direction
+from pyipm_tpu_torch.ops.linalg import reg_solve_kkt
 
 
 class SolverState(NamedTuple):
@@ -101,11 +102,11 @@ def _check_supported(cfg: IPMConfig, nineq: int) -> IPMConfig:
             "mu_strategy resolving to 'mehrotra': the predictor-corrector "
             "direction is deferred (ROADMAP Slice A item 5, "
             "condensed_direction_mehrotra)")
-    if cfg.linear_solver != "condensed":
+    if cfg.linear_solver == "lu":
         raise NotImplementedError(
-            f"linear_solver={cfg.linear_solver!r}: only 'condensed' is "
-            "ported; 'ldlt'/'lu' need the full-KKT path (ROADMAP Slice A "
-            "item 4, Slice B item 11)")
+            "linear_solver='lu': the eigendecomposition parity path "
+            "(_reg_solve_eigh) is not ported yet; use 'condensed' or "
+            "'ldlt'")
     if cfg.trace_metrics:
         raise NotImplementedError(
             "trace_metrics: per-iteration histories are ROADMAP Slice C "
@@ -127,6 +128,23 @@ class BatchSolver:
         self.config = _check_supported(cfg, problem.nineq)
 
     # ------------------------------------------------------------------
+    def direction(self, st: SolverState, p):
+        """Newton direction and the new delta (reference pyipm.py:
+        1717-1721): the slack-eliminated condensed system by default, the
+        full (D+2N+M)^2 KKT matrix with ``linear_solver='ldlt'`` (JAX
+        solver.py:318-329).  Returns (dz, delta_new, retries)."""
+        problem, cfg = self.problem, self.config
+        if cfg.linear_solver == "condensed":
+            return condensed_direction(problem, cfg, st.x, st.s, st.lda,
+                                       st.mu, st.delta, p)
+        g = -K.grad(problem, st.x, st.s, st.lda, st.mu, p)
+        H = K.kkt_matrix(problem, st.x, st.s, st.lda, st.mu, p)
+        return reg_solve_kkt(
+            H, g, st.delta, st.mu, nvar=problem.nvar, neq=problem.neq,
+            nineq=problem.nineq, eps=cfg.eps, reg_coef=cfg.reg_coef,
+            eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0,
+            max_retries=cfg.max_reg_retries, block=cfg.ldlt_block)
+
     def inner_iter(self, st: SolverState, p) -> SolverState:
         """One primal-dual iteration for every instance of ``st`` (the
         body of the reference's inner loop, pyipm.py:1672-1770)."""
@@ -135,8 +153,7 @@ class BatchSolver:
         dtype = st.x.dtype
         tiny = torch.finfo(dtype).tiny
 
-        dz, delta_new, retries = condensed_direction(
-            problem, cfg, st.x, st.s, st.lda, st.mu, st.delta, p)
+        dz, delta_new, retries = self.direction(st, p)
         st = st._replace(delta=delta_new,
                          reg_retries=st.reg_retries + retries)
 

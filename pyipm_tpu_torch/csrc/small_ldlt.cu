@@ -27,9 +27,8 @@
 // update rounded as (l_i * l_k) * d_j then subtracted, with the _rn
 // intrinsics so the compiler does not contract it into an FMA.
 //
-// Build (plain C interface, loaded with ctypes):
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libsmall_ldlt.so small_ldlt.cu
+// Build: see pyipm_tpu_torch/ops/_build.py (one object per source, linked
+// into one shared library with a plain C interface, loaded with ctypes).
 
 #include <cuda_runtime.h>
 

@@ -12,17 +12,30 @@ import numpy as np
 
 from pyipm_tpu_torch.config import IPMConfig
 from pyipm_tpu_torch.core.solver import SolverResult
-from pyipm_tpu_torch.models.random_nlp import QPData, qp_data
+from pyipm_tpu_torch.models.random_nlp import (
+    DenseNLPData, QPData, dense_nlp_data, qp_data,
+)
 
 
-def qpdata_from_numpy(data, device="cpu", dtype=None) -> QPData:
+def _as_arrays(data, fields) -> dict:
+    if not isinstance(data, dict):
+        data = {k: getattr(data, k) for k in fields}
+    return {k: np.asarray(v) for k, v in data.items()}
+
+
+def qpdata_from_numpy(data, device=None, dtype=None) -> QPData:
     """A QPData (from either package, or a dict keyed by field name) whose
     leaves convert with ``np.asarray``, as the port's QPData on
-    ``device``."""
-    if not isinstance(data, dict):
-        data = {k: getattr(data, k) for k in QPData._fields}
-    return qp_data({k: np.asarray(v) for k, v in data.items()},
-                   device=device, dtype=dtype)
+    ``device`` (the card when None; pass ``device="cpu"`` for the CPU)."""
+    return qp_data(_as_arrays(data, QPData._fields), device=device,
+                   dtype=dtype)
+
+
+def dense_from_numpy(data, device=None, dtype=None) -> DenseNLPData:
+    """A DenseNLPData (the JAX package's, or a dict keyed by field name)
+    as the port's, on ``device`` (the card when None)."""
+    return dense_nlp_data(_as_arrays(data, DenseNLPData._fields),
+                          device=device, dtype=dtype)
 
 
 def config_from_dict(d: dict) -> IPMConfig:

@@ -1,9 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` into a shared library with a plain C
-interface, at first use, into ``pyipm_tpu_torch/_build/`` (listed in
-``.gitignore``).  The library name carries a hash of the source and the
-flags, so an edited source is rebuilt.  Nothing here runs at import.
+Every ``csrc/*.cu`` is compiled by ``nvcc`` into an object, all sources at
+once in parallel, and the objects are linked into ONE shared library with a
+plain C interface, at first use, into ``pyipm_tpu_torch/_build/`` (listed
+in ``.gitignore``).  The library name carries a hash of every source and
+the flags, so an edited source is rebuilt.  Nothing here runs at import.
+
+Also what every wrapper shares: operand checks and the launch itself.
 """
 
 from __future__ import annotations
@@ -16,13 +19,20 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "small_ldlt.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 _lib = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -37,32 +47,46 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"small_ldlt_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"pyipm_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(force: bool = False) -> Path:
-    """Compile the kernels unless a library for this source exists (or
-    always, with ``force``)."""
+def _run_all(cmds) -> list[str]:
+    """Run the commands at once; raise on the first failure.  Returns each
+    command's compiler output (stdout + stderr)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{out}")
+    return outs
+
+
+def build(force: bool = False, verbose: bool = False):
+    """Compile the kernels unless a library for these sources exists (or
+    always, with ``force``).  Returns (library path, compiler output);
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills)."""
     out = library_path()
     if out.exists() and not force:
-        return out
+        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj,
+                          str(src)] for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, out.name)
+        logs += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
+    return out, "".join(logs)
 
 
 def load() -> ctypes.CDLL:
@@ -71,23 +95,49 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    path = build()
+    path, _ = build()
     lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
-    for dt in ("f32", "f64"):
-        fn = getattr(lib, f"pyipm_ldlt_factor_{dt}")
-        fn.argtypes = [P, P, P, I, I, P]
-        fn.restype = I
-        fn = getattr(lib, f"pyipm_ldlt_solve_{dt}")
-        fn.argtypes = [P, P, P, P, I, I, P]
-        fn.restype = I
+    signatures = {
+        "pyipm_ldlt_factor": [P, P, P, I, I, P],
+        "pyipm_ldlt_solve": [P, P, P, P, I, I, P],
+        "pyipm_panel_ldlt": [P, P, P, I, P],
+        "pyipm_bwd_sweep": [P, P, P, P, P, I, I, I, P],
+    }
+    for name, args in signatures.items():
+        for dt in DTYPES.values():
+            fn = getattr(lib, f"{name}_{dt}")
+            fn.argtypes = args
+            fn.restype = I
     lib.pyipm_error_string.argtypes = [I]
     lib.pyipm_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
 
 
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+def launch(entry: str, what: str, dtype, device, *args) -> None:
+    """Call the library's ``{entry}_f32`` or ``_f64`` (by ``dtype``) with
+    ``args`` and the current stream of ``device``; raise on a CUDA error
+    (a refused launch never runs, so it must be caught here)."""
+    lib = load()
+    fn = getattr(lib, f"{entry}_{DTYPES[dtype]}")
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         msg = lib.pyipm_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_operand(name, t, shape, dtype, device):
+    """Raise unless ``t`` is a contiguous float32/float64 tensor of the
+    given shape, dtype and device."""
+    if t.dtype != dtype or t.dtype not in DTYPES:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
+                        f"float64 matching the other operands")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -72,7 +72,7 @@ def condensed_direction(problem: Problem, cfg, x, s, lda, mu, delta, p):
         Kc, rhs, delta, mu, nvar=D, neq=M, nineq=0, eps=cfg.eps,
         reg_coef=cfg.reg_coef, eta=cfg.eta, beta=cfg.beta,
         delta0=cfg.delta0, max_retries=cfg.max_reg_retries,
-        want_solver=True)
+        want_solver=True, block=cfg.ldlt_block)
     delta_applied, eq_applied = applied
     JiT = Ji.transpose(1, 2)
     JeT = Je.transpose(1, 2)

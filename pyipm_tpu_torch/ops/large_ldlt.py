@@ -1,0 +1,131 @@
+"""Kernels of the large-K factorization and solve: the Hopper kernels of
+``csrc/panel_ldlt.cu`` and ``csrc/bwd_sweep.cu`` and their plain PyTorch
+versions.
+
+  - :func:`panel_ldlt` — LDL^T of one n x n diagonal panel (n <= 128),
+    counterpart of the Pallas ``_panel_kernel`` / ``panel_ldlt``
+    (pyipm_tpu/ops/pallas_ldlt.py:198-245);
+  - :func:`bwd_sweep_panels` / :func:`bwd_sweep_blocks` — the backward
+    substitution L^T x = z from the padded factor and the inverses of its
+    128-wide panels or of its superblocks, counterparts of the Pallas
+    ``_bwd_sweep_panels_kernel`` and ``_bwd_sweep_kernel``
+    (pallas_ldlt.py:386-670).  One CUDA template serves both.
+
+The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
+kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
+counts kernel launches per wrapper; nothing else adds to it.  A sweep is one
+launch of the wrapper: on the stream it runs two short kernels per block
+step of the recurrence (see ``csrc/bwd_sweep.cu``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pyipm_tpu_torch.ops import _build
+
+MAX_PANEL = 128
+SWEEP_MAX_W = 4096
+LAUNCHES = {"panel_ldlt": 0, "bwd_sweep_panels": 0, "bwd_sweep_blocks": 0}
+
+
+# ----------------------------------------------------------------------
+# plain versions
+def panel_ldlt_ref(A):
+    """Unpivoted right-looking LDL^T of one (n, n) panel -> (L unit lower,
+    d), in the Pallas panel kernel's arithmetic: l = a_j / safe, trailing
+    update a -= (l * safe) l^T, a zero pivot divides (and multiplies) by 1
+    (pallas_ldlt.py:205-221)."""
+    n = A.shape[0]
+    W = A.clone()
+    L = torch.zeros_like(A)
+    d = A.new_zeros((n,))
+    for j in range(n):
+        dj = W[j, j].clone()
+        safe = torch.where(torch.abs(dj) > 0, dj, torch.ones_like(dj))
+        col = W[j + 1:, j] / safe
+        L[j + 1:, j] = col
+        L[j, j] = 1
+        d[j] = dj
+        W[j + 1:, j + 1:] -= (col * safe)[:, None] * col[None, :]
+    return L, d
+
+
+def bwd_sweep_ref(Lp, z, inv):
+    """x with L^T x = z by block backward substitution at the block width
+    w of ``inv`` (nsteps, w, w), the inverses of Lp's diagonal blocks:
+    x_k = inv_k^T (z_k - Lp[(k+1)w:, kw:(k+1)w]^T x[(k+1)w:]), k descending
+    (linalg.py:579-622)."""
+    nsteps, w, _ = inv.shape
+    x = torch.zeros_like(z)
+    for k in reversed(range(nsteps)):
+        j0, j1 = k * w, (k + 1) * w
+        acc = Lp[j1:, j0:j1].T @ x[j1:]
+        x[j0:j1] = inv[k].T @ (z[j0:j1] - acc)
+    return x
+
+
+# ----------------------------------------------------------------------
+def panel_ldlt(A):
+    """(n, n) -> (L, d), n <= 128.  CUDA: the hand-written kernel; CPU:
+    plain."""
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"A must be (n, n), got {tuple(A.shape)}")
+    n = A.shape[0]
+    if not 0 < n <= MAX_PANEL:
+        raise ValueError(f"panel size {n} not in 1..{MAX_PANEL}")
+    _build.check_operand("A", A, (n, n), A.dtype, A.device)
+    if A.device.type == "cpu":
+        return panel_ldlt_ref(A)
+    if A.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {A.device}")
+    L = torch.empty_like(A)
+    d = A.new_empty((n,))
+    _build.launch("pyipm_panel_ldlt", "panel_ldlt", A.dtype, A.device,
+                  A.data_ptr(), L.data_ptr(), d.data_ptr(), n)
+    LAUNCHES["panel_ldlt"] += 1
+    return L, d
+
+
+def _sweep(name, Lp, z, inv):
+    if Lp.dim() != 2 or inv.dim() != 3:
+        raise ValueError(f"{name}: Lp must be (npad, npad) and the inverses "
+                         f"(nsteps, w, w), got {tuple(Lp.shape)}, "
+                         f"{tuple(inv.shape)}")
+    npad = Lp.shape[0]
+    nsteps, w, _ = inv.shape
+    if nsteps * w != npad or not 0 < w <= SWEEP_MAX_W:
+        raise ValueError(f"{name}: {nsteps} blocks of {w} do not tile "
+                         f"npad = {npad} (w <= {SWEEP_MAX_W})")
+    dt, dev = Lp.dtype, Lp.device
+    _build.check_operand("Lp", Lp, (npad, npad), dt, dev)
+    _build.check_operand("z", z, (npad,), dt, dev)
+    _build.check_operand("inv", inv, (nsteps, w, w), dt, dev)
+    if dev.type == "cpu":
+        return bwd_sweep_ref(Lp, z, inv)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    # rows per partial-sum chunk: enough CTAs per step to spread the slab
+    # over the SMs, few enough partial rows for the finishing CTAs to sum
+    R = 64 if w <= 128 else 256
+    nch = -(-(npad - w) // R)
+    x = torch.empty_like(z)
+    partial = Lp.new_empty((max(nch, 1) * w,))
+    _build.launch("pyipm_bwd_sweep", name, dt, dev, Lp.data_ptr(),
+                  z.data_ptr(), inv.data_ptr(), x.data_ptr(),
+                  partial.data_ptr(), npad, w, R)
+    LAUNCHES[name] += 1
+    return x
+
+
+def bwd_sweep_panels(Lp, z, invp):
+    """x with L^T x = z from the grid-padded factor Lp (npad, npad), the
+    diagonal-scaled forward-substituted z (npad,) and the 128-panel
+    inverses invp (npad/128, 128, 128).  CUDA: the hand-written sweep;
+    CPU: plain."""
+    return _sweep("bwd_sweep_panels", Lp, z, invp)
+
+
+def bwd_sweep_blocks(Lp, z, invb):
+    """The same x from the superblock inverses invb (npad/w, w, w)."""
+    return _sweep("bwd_sweep_blocks", Lp, z, invb)

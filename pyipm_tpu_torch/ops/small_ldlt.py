@@ -18,7 +18,6 @@ from pyipm_tpu_torch.ops import _build
 
 MAX_N = 128
 LAUNCHES = {"factor": 0, "solve": 0}
-_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
 # ----------------------------------------------------------------------
@@ -57,22 +56,6 @@ def ldlt_solve_small_ref(L, d, b):
 
 
 # ----------------------------------------------------------------------
-def _check(name, t, shape, dtype, device):
-    if t.dtype != dtype or t.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
-                        f"float64 matching the other operands")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def ldlt_factor_small(A):
     """(B, n, n) -> (L, d).  CUDA: the hand-written kernel; CPU: plain."""
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
@@ -80,7 +63,7 @@ def ldlt_factor_small(A):
     B, n, _ = A.shape
     if n > MAX_N:
         raise ValueError(f"n = {n} > {MAX_N}: not a small system")
-    _check("A", A, (B, n, n), A.dtype, A.device)
+    _build.check_operand("A", A, (B, n, n), A.dtype, A.device)
     if A.device.type == "cpu":
         return ldlt_factor_small_ref(A)
     if A.device.type != "cuda":
@@ -89,12 +72,8 @@ def ldlt_factor_small(A):
     d = A.new_empty((B, n))
     if B == 0:
         return L, d
-    lib = _build.load()
-    fn = getattr(lib, f"pyipm_ldlt_factor_{_DTYPES[A.dtype]}")
-    with torch.cuda.device(A.device):
-        code = fn(A.data_ptr(), L.data_ptr(), d.data_ptr(), B, n,
-                  _stream(A.device))
-    _build.check(lib, code, "ldlt_factor_small")
+    _build.launch("pyipm_ldlt_factor", "ldlt_factor_small", A.dtype,
+                  A.device, A.data_ptr(), L.data_ptr(), d.data_ptr(), B, n)
     LAUNCHES["factor"] += 1
     return L, d
 
@@ -107,9 +86,9 @@ def ldlt_solve_small(L, d, b):
     B, n, _ = L.shape
     if n > MAX_N:
         raise ValueError(f"n = {n} > {MAX_N}: not a small system")
-    _check("L", L, (B, n, n), L.dtype, L.device)
-    _check("d", d, (B, n), L.dtype, L.device)
-    _check("b", b, (B, n), L.dtype, L.device)
+    _build.check_operand("L", L, (B, n, n), L.dtype, L.device)
+    _build.check_operand("d", d, (B, n), L.dtype, L.device)
+    _build.check_operand("b", b, (B, n), L.dtype, L.device)
     if L.device.type == "cpu":
         return ldlt_solve_small_ref(L, d, b)
     if L.device.type != "cuda":
@@ -117,11 +96,8 @@ def ldlt_solve_small(L, d, b):
     x = torch.empty_like(b)
     if B == 0:
         return x
-    lib = _build.load()
-    fn = getattr(lib, f"pyipm_ldlt_solve_{_DTYPES[L.dtype]}")
-    with torch.cuda.device(L.device):
-        code = fn(L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(),
-                  B, n, _stream(L.device))
-    _build.check(lib, code, "ldlt_solve_small")
+    _build.launch("pyipm_ldlt_solve", "ldlt_solve_small", L.dtype,
+                  L.device, L.data_ptr(), d.data_ptr(), b.data_ptr(),
+                  x.data_ptr(), B, n)
     LAUNCHES["solve"] += 1
     return x

@@ -65,7 +65,8 @@ def test_qp_instances_match_jax():
 
     want = jax.jit(jax.vmap(one))(jdata, *(jnp.asarray(a) for a in args))
     got = t_cd(t_qp(D, NLIN), TCfg(float_dtype="float64", verbosity=0),
-               *(torch.as_tensor(a) for a in args), qp_data(arr))
+               *(torch.as_tensor(a) for a in args),
+               qp_data(arr, device="cpu"))
     _compare(got, want)
 
 

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels of pyipm_tpu_torch/csrc/small_ldlt.cu
-against their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels of pyipm_tpu_torch/csrc (small_ldlt.cu,
+panel_ldlt.cu, bwd_sweep.cu) against their plain PyTorch versions, on the
+card.
 
 Imports torch and numpy only, so it runs on the card's machine, which has
 no JAX: ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.
@@ -11,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from pyipm_tpu_torch.ops import large_ldlt as ll  # noqa: E402
+from pyipm_tpu_torch.ops import linalg as lin  # noqa: E402
 from pyipm_tpu_torch.ops import small_ldlt as sl  # noqa: E402
 
 SHAPES = [(10000, 16), (10000, 36), (129, 36), (1, 16), (512, 128)]
@@ -62,3 +65,74 @@ def test_kernel_rejects_bad_input_on_the_card(card):
     with pytest.raises(ValueError):
         sl.ldlt_solve_small(A, torch.ones(2, 4, device=card),
                             torch.ones(2, 4, device="cpu"))
+
+
+def _zero_pivot_panel(n):
+    """Exact-arithmetic panel with zero pivots (see
+    test_torch_large_ldlt.py)."""
+    rng = np.random.default_rng(n)
+    Lr = np.tril(rng.integers(-1, 2, (n, n)), -1) + np.eye(n)
+    d = rng.choice([1.0, -1.0, 2.0, -2.0], n)
+    d[[1, n // 3, n - 5]] = 0.0
+    A = (Lr * np.where(d != 0, d, 1.0)) @ Lr.T
+    A[d == 0, d == 0] -= 1.0
+    return A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "zero_pivot"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [128, 64])
+def test_panel_kernel_bitwise_equal_to_plain(card, n, dtype, kind):
+    """Same arithmetic, no FMA contraction: bitwise equal L and d."""
+    rng = np.random.default_rng(n)
+    A = (_zero_pivot_panel(n) if kind == "zero_pivot"
+         else _rand_sym(rng, 1, n)[0])
+    A = torch.as_tensor(A, dtype=getattr(torch, dtype), device=card)
+    n0 = ll.LAUNCHES["panel_ldlt"]
+    L, d = ll.panel_ldlt(A)
+    Lr, dr = ll.panel_ldlt_ref(A)
+    torch.cuda.synchronize()
+    assert ll.LAUNCHES["panel_ldlt"] == n0 + 1
+    assert torch.equal(L, Lr) and torch.equal(d, dr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("K", [1900, 4352])
+def test_sweep_kernels_match_plain(card, K, dtype):
+    """Both sweeps on real factors (npad 2048 and 5120): f32 within 1e-5,
+    f64 within 1e-10 relative, and the same bits on a second call."""
+    rng = np.random.default_rng(K)
+    dt = getattr(torch, dtype)
+    A = torch.as_tensor(_rand_sym(rng, 1, K)[0] + K * np.eye(K), dtype=dt,
+                        device=card)
+    Lp, _, invp = lin.ldlt_factor_panels(A)
+    Lb, _, invb = lin.ldlt_factor_blocks(A, group=8, pad_to_grid=True)
+    z = torch.as_tensor(rng.standard_normal(Lp.shape[0]), dtype=dt,
+                        device=card)
+    tol = 1e-5 if dtype == "float32" else 1e-10
+    for name, fn, L, inv in (("bwd_sweep_panels", ll.bwd_sweep_panels,
+                              Lp, invp),
+                             ("bwd_sweep_blocks", ll.bwd_sweep_blocks,
+                              Lb, invb)):
+        n0 = ll.LAUNCHES[name]
+        x = fn(L, z, inv)
+        xr = ll.bwd_sweep_ref(L, z, inv)
+        x2 = fn(L, z, inv)
+        torch.cuda.synchronize()
+        assert ll.LAUNCHES[name] == n0 + 2
+        err = float(torch.linalg.vector_norm(x - xr)
+                    / torch.linalg.vector_norm(xr))
+        assert err <= tol, (name, err)
+        assert torch.equal(x, x2), name
+
+
+@pytest.mark.cuda
+def test_large_kernels_reject_bad_input_on_the_card(card):
+    with pytest.raises(ValueError):
+        ll.panel_ldlt(torch.eye(129, device=card))
+    with pytest.raises(ValueError):
+        ll.bwd_sweep_panels(torch.eye(256, device=card),
+                            torch.ones(256, device="cpu"),
+                            torch.eye(128, device=card).repeat(2, 1, 1))

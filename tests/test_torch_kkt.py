@@ -96,7 +96,7 @@ def test_qp_family_matches_jax(name):
         return jf(j_qp(data, D, NLIN), x, s, lda, mu, nu, dz)
 
     _compare(name, lambda *a: jax.vmap(one)(jdata, *a), t_qp(D, NLIN),
-             args, qp_data(arr))
+             args, qp_data(arr, device="cpu"))
 
 
 @pytest.mark.parametrize("name", sorted(set(QUANTITIES) - {"jac_ci"})

@@ -1,0 +1,371 @@
+"""The port's large-K path (pyipm_tpu_torch/ops/large_ldlt.py and the
+K > 128 half of ops/linalg.py) against the JAX package, on identical
+numpy-seeded inputs.
+
+The Pallas kernels run as tests/test_pallas_ldlt.py runs them, in
+interpret mode.  The JAX package's CPU factorization factors each panel
+with ``ldlt_unblocked`` (left-looking), the port with the Pallas panel
+kernel's right-looking arithmetic (the port's ``panel_ldlt`` on the CPU is
+that kernel's plain version), so the two agree to roundoff: float64
+results are compared to 1e-10 relative.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from pyipm_tpu.config import IPMConfig as JCfg  # noqa: E402
+from pyipm_tpu.ops import linalg as JL  # noqa: E402
+from pyipm_tpu.ops import pallas_ldlt as pk  # noqa: E402
+from pyipm_tpu_torch.ops import large_ldlt as ll  # noqa: E402
+from pyipm_tpu_torch.ops import linalg as TL  # noqa: E402
+
+SIZES = [216, 1100]
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-300)
+
+
+def _T(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _rand_sym(rng, n, shift):
+    A = rng.standard_normal((n, n))
+    return (A + A.T) / 2 + np.eye(n) * shift
+
+
+def _indef(rng, n):
+    """Symmetric indefinite, pivots well away from 0 (alternating-sign
+    dominant diagonal), so unpivoted factors agree to roundoff."""
+    sgn = np.where(np.arange(n) % 3 == 0, -1.0, 1.0)
+    return 0.5 * _rand_sym(rng, n, 0.0) + np.diag(sgn * n / 2)
+
+
+def _exact_zero_pivot_panel(rng, n):
+    """A panel whose factorization by the panel kernel's recurrence is
+    exact (small integers, pivots in {0, +-1, +-2}) and has zero pivots
+    with nonzero columns below them, where the panel kernel still
+    subtracts l l^T (safe = 1).  Built by running that recurrence
+    backwards: A = sum_j s_j l_j l_j^T - sum_{d_j = 0} e_j e_j^T."""
+    Lr = np.tril(rng.integers(-1, 2, (n, n)), -1) + np.eye(n)
+    d = rng.choice([1.0, -1.0, 2.0, -2.0], n)
+    d[[1, n // 3, n - 5]] = 0.0
+    safe = np.where(d != 0, d, 1.0)
+    A = (Lr * safe) @ Lr.T
+    A[d == 0, d == 0] -= 1.0
+    return A, Lr, d
+
+
+# ----------------------------------------------------------------------
+# kernel 3: the panel
+@pytest.mark.parametrize("n", [64, 128])
+def test_panel_ref_matches_pallas_interpret(rng, n):
+    """Tolerances of test_pallas_ldlt.py:69-76.  (XLA's CPU backend fuses
+    the kernel's trailing update into an FMA, the port rounds the product
+    first, so general panels agree to roundoff, not bitwise.)"""
+    A = _rand_sym(rng, n, n / 4).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        Lk, dk = pk.panel_ldlt(jnp.asarray(A))
+    L, d = ll.panel_ldlt_ref(torch.as_tensor(A))
+    np.testing.assert_allclose(d.numpy(), np.asarray(dk), rtol=5e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(L.numpy(), np.asarray(Lk), rtol=5e-3,
+                               atol=1e-3)
+    rec = L.numpy() @ np.diag(d.numpy()) @ L.numpy().T
+    scale = float(np.abs(A).max())
+    np.testing.assert_allclose(rec, A, atol=5e-5 * scale * n, rtol=1e-4)
+    np.testing.assert_array_equal(d.numpy() < 0, np.asarray(dk) < 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_panel_ref_bitwise_on_zero_pivot_panel(n, dtype):
+    """Bitwise equal to the Pallas panel kernel (interpret mode) on a
+    panel with exact zero pivots; the JAX package's ``ldlt_unblocked``
+    subtracts nothing at a zero pivot and so gives other pivots after it
+    (a divergence inside the reference, ROADMAP Queue 3)."""
+    A, Lr, dr = _exact_zero_pivot_panel(np.random.default_rng(n), n)
+    A = A.astype(dtype)
+    with pltpu.force_tpu_interpret_mode():
+        Lk, dk = pk.panel_ldlt(jnp.asarray(A))
+    L, d = ll.panel_ldlt(torch.as_tensor(A))           # CPU: plain version
+    np.testing.assert_array_equal(d.numpy(), np.asarray(dk))
+    np.testing.assert_array_equal(L.numpy(), np.asarray(Lk))
+    np.testing.assert_array_equal(d.numpy(), dr)
+    np.testing.assert_array_equal(L.numpy(), Lr)
+    _, du = JL.ldlt_unblocked(jnp.asarray(A))
+    assert not np.array_equal(np.asarray(du), dr)
+
+
+def test_panel_wrapper_checks():
+    with pytest.raises(ValueError):
+        ll.panel_ldlt(torch.eye(129))
+    with pytest.raises(ValueError):
+        ll.panel_ldlt(torch.ones(4, 5))
+    with pytest.raises(ValueError):
+        ll.panel_ldlt(torch.eye(8).T[:, :4].T)         # not contiguous
+    with pytest.raises(TypeError):
+        ll.panel_ldlt(torch.eye(8, dtype=torch.float16))
+
+
+# ----------------------------------------------------------------------
+# kernels 4 and 5: the backward sweeps
+def _jax_panel_factors(rng, n, dtype, group=8):
+    A = _rand_sym(rng, n, n)
+    b = rng.standard_normal(n)
+    Lp, dp, invp, yf = JL.ldlt_factor_panels(
+        jnp.asarray(A, dtype), block=128, group=group,
+        rhs=jnp.asarray(b, dtype))
+    z = yf / jnp.where(jnp.abs(dp) > 0, dp, 1.0)
+    return Lp, z, invp
+
+
+def test_bwd_sweep_panels_matches_pallas_interpret_and_xla(rng):
+    """n = 1900 pads to 2048: several streamed chunks and superblocks
+    (geometries of test_pallas_ldlt.py:189), float32, to the JAX test's
+    2e-5."""
+    Lp, z, invp = _jax_panel_factors(rng, 1900, jnp.float32)
+    got = ll.bwd_sweep_panels(_T(Lp), _T(z), _T(invp)).numpy()
+    ref = np.asarray(JL._bwd_sweep_panels_xla(Lp, z, invp))
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+    for SB, R in ((1024, 512), (1024, 256), (512, 128)):
+        with pltpu.force_tpu_interpret_mode():
+            x = np.asarray(pk._bwd_sweep_panels_pallas(Lp, z, invp, SB, R))
+        np.testing.assert_allclose(got, x, rtol=2e-5, atol=2e-5,
+                                   err_msg=f"SB={SB} R={R}")
+
+
+@pytest.mark.parametrize("n", [300, 1900])
+def test_bwd_sweeps_match_xla_f64(rng, n):
+    """Both sweeps in float64 against the JAX XLA sweeps, on
+    ldlt_factor_blocks(pad_to_grid=True) and ldlt_factor_panels factors."""
+    Lp, z, invp = _jax_panel_factors(rng, n, jnp.float64)
+    got = ll.bwd_sweep_panels(_T(Lp), _T(z), _T(invp)).numpy()
+    assert _rel(got, JL._bwd_sweep_panels_xla(Lp, z, invp)) < 1e-10
+    A = _rand_sym(rng, n, n)
+    b = rng.standard_normal(n)
+    L, d, invb, yf = JL.ldlt_factor_blocks(
+        jnp.asarray(A), block=128, group=4, rhs=jnp.asarray(b),
+        pad_to_grid=True)
+    z = yf / jnp.where(jnp.abs(d) > 0, d, 1.0)
+    got = ll.bwd_sweep_blocks(_T(L), _T(z), _T(invb)).numpy()
+    assert _rel(got, JL._bwd_sweep_xla(L, z, invb)) < 1e-10
+
+
+def test_sweep_wrapper_checks():
+    Lp = torch.eye(256)
+    with pytest.raises(ValueError, match="tile"):
+        ll.bwd_sweep_panels(Lp, torch.ones(256), torch.eye(100)[None])
+    with pytest.raises(ValueError):
+        ll.bwd_sweep_blocks(Lp, torch.ones(255), torch.eye(128).repeat(
+            2, 1, 1))
+    with pytest.raises(TypeError):
+        ll.bwd_sweep_blocks(Lp, torch.ones(256, dtype=torch.float64),
+                            torch.eye(128).repeat(2, 1, 1))
+
+
+# ----------------------------------------------------------------------
+# the factorizations, float64
+@pytest.mark.parametrize("K", SIZES)
+def test_ldlt_factor_matches_jax(rng, K):
+    """rhs, pad_to and want_panels together, and the plain form."""
+    A = _indef(rng, K)
+    b = rng.standard_normal(K)
+    npad = -(-K // 128) * 128 + 256
+    want = JL.ldlt_factor(jnp.asarray(A), rhs=jnp.asarray(b), pad_to=npad,
+                          want_panels=True)
+    got = TL.ldlt_factor(_T(A), rhs=_T(b), pad_to=npad, want_panels=True)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    for g, w, name in zip(got, want, ("L", "d", "y", "panels")):
+        assert _rel(g.numpy(), w) < 1e-10, name
+    L, d = TL.ldlt_factor(_T(A))
+    Lj, dj = JL.ldlt_factor(jnp.asarray(A))
+    assert _rel(L.numpy(), Lj) < 1e-10 and _rel(d.numpy(), dj) < 1e-10
+    np.testing.assert_array_equal(d.numpy() < 0, np.asarray(dj) < 0)
+
+
+@pytest.mark.parametrize("pad_to_grid", [False, True])
+@pytest.mark.parametrize("K", SIZES)
+def test_ldlt_factor_blocks_and_panels_match_jax(rng, K, pad_to_grid):
+    A = _indef(rng, K)
+    b = rng.standard_normal(K)
+    want = JL.ldlt_factor_blocks(jnp.asarray(A), block=128, group=4,
+                                 rhs=jnp.asarray(b), pad_to_grid=pad_to_grid)
+    got = TL.ldlt_factor_blocks(_T(A), block=128, group=4, rhs=_T(b),
+                                pad_to_grid=pad_to_grid)
+    for g, w, name in zip(got, want, ("L", "d", "invb", "y")):
+        assert g.shape == w.shape and _rel(g.numpy(), w) < 1e-10, name
+    want = JL.ldlt_factor_panels(jnp.asarray(A), block=128, group=8,
+                                 rhs=jnp.asarray(b))
+    got = TL.ldlt_factor_panels(_T(A), block=128, group=8, rhs=_T(b))
+    for g, w, name in zip(got, want, ("Lp", "dp", "invp", "y")):
+        assert g.shape == w.shape and _rel(g.numpy(), w) < 1e-10, name
+
+
+@pytest.mark.parametrize("K", SIZES)
+def test_large_solves_match_numpy(rng, K):
+    """Every solve form against a dense solve, and the folded-forward
+    finishes against the full solves."""
+    A = _rand_sym(rng, K, K)
+    b = rng.standard_normal(K)
+    ref = np.linalg.solve(A, b)
+    L, d, invb, yf = TL.ldlt_factor_blocks(_T(A), group=4, rhs=_T(b),
+                                           pad_to_grid=True)
+    for x in (TL.ldlt_solve_blocks(L, d, invb, _T(b)),
+              TL.ldlt_solve_blocks_bwd(L, d, invb, yf)[:K]):
+        assert _rel(x.numpy(), ref) < 1e-12
+    Lu, du, invu = TL.ldlt_factor_blocks(_T(A), group=4)
+    assert _rel(TL.ldlt_solve_blocks(Lu, du, invu, _T(b)).numpy(),
+                ref) < 1e-12
+    Lp, dp, invp, yp = TL.ldlt_factor_panels(_T(A), rhs=_T(b))
+    for x in (TL.ldlt_solve_panels(Lp, dp, invp, _T(b)),
+              TL.ldlt_solve_panels_bwd(Lp, dp, invp, yp)[:K]):
+        assert _rel(x.numpy(), ref) < 1e-12
+    L1, d1 = TL.ldlt_factor(_T(A))
+    assert _rel(TL.ldlt_solve(L1, d1, _T(b)).numpy(), ref) < 1e-12
+
+
+def test_unit_lower_inverse_exact(rng):
+    for n in (5, 16, 33, 128):
+        L = np.tril(rng.standard_normal((n, n)), -1) / n + np.eye(n)
+        Linv = TL.unit_lower_inverse(_T(L)).numpy()
+        np.testing.assert_allclose(Linv @ L, np.eye(n), atol=1e-12)
+        assert _rel(Linv, JL.unit_lower_inverse(jnp.asarray(L))) < 1e-12
+
+
+# ----------------------------------------------------------------------
+# reg_solve_kkt, K > 128, float64
+def _saddle(rng, D, M, neg_w, rank_def=False):
+    """[[W, Je], [Je', 0]] with ``neg_w`` negative eigenvalues of W; with
+    ``rank_def`` Je has two repeated columns (a singular eq block)."""
+    Q = np.linalg.qr(rng.standard_normal((D, D)))[0]
+    w = np.linspace(1.0, 3.0, D)
+    w[:neg_w] *= -1
+    Je = rng.standard_normal((D, M))
+    if rank_def:
+        Je[:, 1] = Je[:, 0]
+        Je[:, 3] = Je[:, 2]
+    H = np.zeros((D + M, D + M))
+    H[:D, :D] = (Q * w) @ Q.T
+    H[:D, D:] = Je
+    H[D:, :D] = Je.T
+    return (H + H.T) / 2
+
+
+def _reg_both(H, g, delta, mu, D, M, want_solver):
+    cfg = JCfg(float_dtype="float64")
+    kw = dict(nvar=D, neq=M, nineq=0, eps=cfg.eps, reg_coef=cfg.reg_coef,
+              eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0, max_retries=40)
+    rhs2 = np.cos(np.arange(H.shape[0]) + 1.0)
+
+    @jax.jit
+    def jax_one(H_, g_, dl_, mu_):
+        out = JL.reg_solve_kkt(H_, g_, dl_, mu_, method="ldlt",
+                               want_solver=want_solver, **kw)
+        if want_solver:
+            return out[:3] + (out[3](jnp.asarray(rhs2)),) + tuple(out[4])
+        return out
+
+    want = [np.asarray(o) for o in jax_one(
+        jnp.asarray(H), jnp.asarray(g), jnp.asarray(delta), jnp.asarray(mu))]
+    got = TL.reg_solve_kkt(_T(H)[None], _T(g)[None],
+                           _T(np.float64(delta))[None],
+                           _T(np.float64(mu))[None], want_solver=want_solver,
+                           **kw)
+    if want_solver:
+        dz, dn, rt, apply_factors, (d_app, e_app) = got
+        got = (dz, dn, rt, apply_factors(_T(rhs2)[None]), d_app, e_app)
+    return [g_[0].numpy() for g_ in got], want
+
+
+CASES = {
+    "healthy": dict(neg_w=0),
+    "wrong_inertia": dict(neg_w=5),
+    "warm_started": dict(neg_w=0, delta=2e-2),
+    "rank_deficient_je": dict(neg_w=0, rank_def=True),
+}
+
+
+def _bkw(H, dz, g, delta, eq, D):
+    """Normwise backward error of dz against H + delta I_x - eq I_eq."""
+    K = H.shape[0]
+    Hs = H.copy()
+    idx = np.arange(K)
+    Hs[idx, idx] += np.where(idx < D, float(delta), -float(eq))
+    dz = np.asarray(dz, np.float64)
+    return (np.linalg.norm(Hs @ dz - g)
+            / (np.linalg.norm(Hs) * np.linalg.norm(dz) + np.linalg.norm(g)))
+
+
+@pytest.mark.parametrize("want_solver", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("K", SIZES)
+def test_reg_solve_kkt_large_matches_jax(K, case, want_solver):
+    """Equal retries, delta_new and applied shifts; dz and a further solve
+    through the final factors to 1e-10.  With a singular eq block the
+    system solved is regularized by ~6e-13 only, so roundoff moves dz by
+    up to ~1e-3 relative: there both directions are held to a backward
+    error of 1e-12 against the regularized system instead."""
+    spec = dict(CASES[case])
+    delta = spec.pop("delta", 0.0)
+    rng = np.random.default_rng(K)
+    M = 16
+    D = K - M
+    H = _saddle(rng, D, M, **spec)
+    g = rng.standard_normal(K)
+    got, want = _reg_both(H, g, delta, 0.1, D, M, want_solver)
+    assert int(got[2]) == int(want[2]), (int(got[2]), int(want[2]))
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-12)
+    if want_solver:
+        np.testing.assert_allclose(got[4], want[4], rtol=1e-12)
+        np.testing.assert_allclose(got[5], want[5], rtol=1e-12)
+    if case == "wrong_inertia":
+        assert float(want[1]) > 0.0
+    if case == "rank_deficient_je":
+        assert float(want[1]) > 0.0                     # escalated
+        if want_solver:
+            assert float(want[5]) > 0.0                 # eq-block shift
+            for dz in (got[0], want[0]):
+                assert _bkw(H, dz, g, want[4], want[5], D) < 1e-12
+        return
+    assert _rel(got[0], want[0]) < 1e-10
+    if want_solver:
+        assert _rel(got[3], want[3]) < 1e-10
+
+
+def test_reg_solve_kkt_large_batch_runs_per_instance():
+    """A (B, K, K) batch with K > 128 is B single-system solves."""
+    rng = np.random.default_rng(3)
+    Hs = np.stack([_saddle(rng, 200, 16, 0), _saddle(rng, 200, 16, 4)])
+    gs = rng.standard_normal((2, 216))
+    cfg = JCfg(float_dtype="float64")
+    kw = dict(nvar=200, neq=16, nineq=0, eps=cfg.eps, reg_coef=cfg.reg_coef,
+              eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0)
+    z = torch.zeros(2, dtype=torch.float64)
+    out = TL.reg_solve_kkt(_T(Hs), _T(gs), z, z + 0.1, want_solver=True,
+                           **kw)
+    for i in range(2):
+        one = TL.reg_solve_kkt(_T(Hs[i:i + 1]), _T(gs[i:i + 1]), z[:1],
+                               z[:1] + 0.1, want_solver=True, **kw)
+        for a, b in zip(out[:3], one[:3]):
+            assert torch.equal(a[i], b[0])
+        r = _T(np.sin(np.arange(216.0)))
+        assert torch.equal(out[3](torch.stack([r, r]))[i], one[3](r[None])[0])
+
+
+@pytest.mark.parametrize("shape", [(300, 200), (200, 300)])
+def test_lstsq_minnorm_large_normal_matrix_matches_jax(rng, shape):
+    """k = 200 > 128: the LU branch of both packages."""
+    A = rng.standard_normal(shape)
+    b = rng.standard_normal(shape[0])
+    want = np.asarray(JL.lstsq_minnorm(jnp.asarray(A), jnp.asarray(b)))
+    got = TL.lstsq_minnorm(_T(A)[None], _T(b)[None])[0].numpy()
+    assert _rel(got, want) < 1e-10

@@ -261,12 +261,15 @@ def test_gate_quiet_on_stable_system(want_solver):
 
 
 def test_large_systems_raise():
+    """K > 128 takes the blocked path, whose panels must fit the panel
+    kernel (block <= 128): a larger block raises."""
     H = torch.eye(130, dtype=torch.float64)[None]
-    with pytest.raises(NotImplementedError, match="Slice B"):
+    with pytest.raises(ValueError, match="block"):
         t_reg(H, torch.ones(1, 130, dtype=torch.float64),
               torch.zeros(1, dtype=torch.float64),
               torch.ones(1, dtype=torch.float64), nvar=130, neq=0, nineq=0,
-              eps=1e-16, reg_coef=1e-8, eta=1e-4, beta=0.4, delta0=1e-8)
+              eps=1e-16, reg_coef=1e-8, eta=1e-4, beta=0.4, delta0=1e-8,
+              block=256)
 
 
 def _lstsq_cases(kind, rng):

@@ -48,7 +48,7 @@ def _fleet(dtype):
     want = {k: np.asarray(getattr(jr, k)) for k in FIELDS}
     cfg = config_from_dict(dataclasses.asdict(jcfg))
     tr = solve_batch(make_qp_problem(D, NLIN), torch.as_tensor(x0), cfg,
-                     params=qpdata_from_numpy(jdata))
+                     params=qpdata_from_numpy(jdata, device="cpu"))
     return result_to_numpy(tr), want, arr
 
 
@@ -79,7 +79,8 @@ def test_batch_of_one_equals_instance_in_batch(fleet64):
     problem = make_qp_problem(D, NLIN)
     cfg = IPMConfig(float_dtype="float64", verbosity=0)
     for i in (0, 5):
-        data_i = qpdata_from_numpy({k: v[i] for k, v in arr.items()})
+        data_i = qpdata_from_numpy({k: v[i] for k, v in arr.items()},
+                                   device="cpu")
         r = solve(problem, torch.zeros(D, dtype=torch.float64), cfg,
                   params=data_i)
         assert int(r.signal) == int(got["signal"][i])
@@ -110,7 +111,7 @@ def test_example7_transcript_pin():
     (dict(lbfgs=4), "L-BFGS"),
     (dict(mu_strategy="mehrotra"), "mehrotra"),
     (dict(mu_strategy="auto"), "mehrotra"),
-    (dict(linear_solver="ldlt"), "condensed"),
+    (dict(linear_solver="lu"), "lu"),
     (dict(trace_metrics=True), "trace_metrics"),
 ])
 def test_unported_options_raise(kw, match):
@@ -134,13 +135,35 @@ def test_port_never_imports_jax():
     code = ("import sys, pyipm_tpu_torch, pyipm_tpu_torch.interop, "
             "pyipm_tpu_torch.models.random_nlp, "
             "pyipm_tpu_torch.models.reference_problems, "
-            "pyipm_tpu_torch.ops.small_ldlt, pyipm_tpu_torch.ops._build; "
+            "pyipm_tpu_torch.ops.small_ldlt, pyipm_tpu_torch.ops._build, "
+            "pyipm_tpu_torch.ops.large_ldlt; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'pyipm_tpu.')) "
             "or m == 'pyipm_tpu']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    timeout=120)
+
+
+def test_samplers_default_to_the_card(monkeypatch):
+    """With no card, the data entry points raise unless the caller names
+    the CPU; they never fall back to it quietly."""
+    from pyipm_tpu_torch.interop import dense_from_numpy
+    from pyipm_tpu_torch.models.random_nlp import (
+        qp_data, sample_dense_arrays, sample_dense_nlp, sample_qp_batch,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arr = sample_qp_arrays(0, 2, 3)
+    dense = sample_dense_arrays(0, 6, 2, hidden=4)
+    for make in (lambda **kw: sample_qp_batch(0, 2, 3, **kw),
+                 lambda **kw: qp_data(arr, **kw),
+                 lambda **kw: qpdata_from_numpy(arr, **kw),
+                 lambda **kw: sample_dense_nlp(0, 6, 2, hidden=4, **kw),
+                 lambda **kw: dense_from_numpy(dense, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert all(t.device.type == "cpu" for t in make(device="cpu"))
 
 
 def test_shifted_gradient_override_matches_jax():
