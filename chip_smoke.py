@@ -13,17 +13,22 @@ Phases, each raising on failure:
   5. the same first 64 instances on CPU tensors (the plain path) against
      the card's results;
   6. kernels 3-5 (panel LDL^T, backward panel and superblock sweeps)
-     against their plain versions on the card, f32 and f64, at the K = 4352
-     factors (npad 5120) and at K = 1900 (npad 2048);
+     against their plain versions on the card, f32 and f64: the panel
+     bitwise at n = 1 to 128, the sweeps at the K = 4352 factors (npad
+     5120) and at K = 1900 (npad 2048), bitwise repeatable;
   7. the single-shot K = 4352 KKT factor+solve (``reg_solve_kkt``,
      want_solver=False), timed;
   8. slice B: the D = 4096, M = 256 dense NLP through ``solve`` on cuda:0,
      with the 'condensed' and with the 'ldlt' linear solver, counters
      reset just before each timed solve;
   9. a D = 1000, M = 64 dense NLP on the card and on CPU tensors.
-The line before the last is the kernels' JSON record, the one before it
-the card's name and power limit; the last line is the JSON result.  Needs
-one CUDA card and the repository checkout.
+Each kernel is timed twice: ``ms``, CUDA events around one wrapper call
+(what the path sees, host enqueue included), and ``device_ms``, the
+kernel's own device time per call from ``torch.profiler`` (or, where the
+profiler shows none, CUDA events around 50 back-to-back calls; the record
+says which).  The line before the last is the kernels' JSON record, the
+one before it the card's name and power limit; the last line is the JSON
+result.  Needs one CUDA card and the repository checkout.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 SEED, B, D, NLIN = 42, 10_000, 16, 4
 N_CROSS = 64
 KERNEL_SHAPES = ((10_000, 16), (10_000, 36), (129, 36), (1, 16), (512, 128))
+PANEL_SIZES = (1, 2, 31, 33, 64, 100, 127, 128)
 TIMED_SHAPES = ((10_000, 16), (10_000, 36))
 # the dense NLP instance of phase 8, also solved by scripts/*dense_nlp*.py
 DENSE_D, DENSE_M, DENSE_H = 4096, 256, 256
@@ -80,6 +86,35 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def device_ms(fn, kernels, calls=50):
+    """(ms, method): device time per call of ``fn`` spent in the CUDA
+    kernels whose names contain one of ``kernels``, from ``torch.profiler``
+    over ``calls`` back-to-back calls, or, if it shows no device time, from
+    CUDA events around them, divided by ``calls``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(k in e.key for k in kernels))
+    if us > 0:
+        return us / calls / 1e3, "torch.profiler"
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(calls):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / calls, f"CUDA events over {calls} calls"
 
 
 def bound(nbytes, flops, peak_flops):
@@ -165,6 +200,10 @@ def check_small_kernels(sl, device):
         f4 = 4
         times[n] = dict(
             factor=cuda_ms(lambda: sl.ldlt_factor_small(A), 50),
+            factor_device=device_ms(lambda: sl.ldlt_factor_small(A),
+                                    ("ldlt_factor_kernel",)),
+            solve_device=device_ms(lambda: sl.ldlt_solve_small(L, d, b),
+                                   ("ldlt_solve_kernel",)),
             factor_plain=cuda_ms(lambda: sl.ldlt_factor_small_ref(A), 10),
             solve=cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), 50),
             solve_plain=cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 10),
@@ -175,9 +214,11 @@ def check_small_kernels(sl, device):
                               Bn * 2 * n * n, F32_FLOPS))
         t = times[n]
         print(f"  f32 B={Bn} n={n}: factor {t['factor']:.4f} ms "
-              f"(plain {t['factor_plain']:.4f} ms, bound "
-              f"{t['factor_bound'][0]:.5f} ms), solve {t['solve']:.4f} ms "
-              f"(plain {t['solve_plain']:.4f} ms, ldl_solve {lib_solve} ms, "
+              f"(device {t['factor_device'][0]:.4f} ms by "
+              f"{t['factor_device'][1]}, plain {t['factor_plain']:.4f} ms, "
+              f"bound {t['factor_bound'][0]:.5f} ms), solve "
+              f"{t['solve']:.4f} ms (device {t['solve_device'][0]:.4f} ms, "
+              f"plain {t['solve_plain']:.4f} ms, ldl_solve {lib_solve} ms, "
               f"bound {t['solve_bound'][0]:.5f} ms), CUDA events, median",
               flush=True)
     return err, times
@@ -204,11 +245,12 @@ def kkt_matrix_bench(D_, M_, dtype, device, seed=0):
 
 def exact_zero_pivot_panel(n, seed):
     """A panel with exact zero pivots whose factorization is exact in
-    either type (small integers, pivots in {0, +-1, +-2})."""
+    either type (small integers, pivots in {0, +-1, +-2}); at n < 5 the
+    zero pivots wrap around."""
     rng = np.random.default_rng(seed)
     Lr = np.tril(rng.integers(-1, 2, (n, n)), -1) + np.eye(n)
     d = rng.choice([1.0, -1.0, 2.0, -2.0], n)
-    d[[1, n // 3, n - 5]] = 0.0
+    d[np.array([1, n // 3, n - 5]) % n] = 0.0
     A = (Lr * np.where(d != 0, d, 1.0)) @ Lr.T
     A[d == 0, d == 0] -= 1.0
     return A
@@ -237,7 +279,7 @@ def check_large_kernels(ll, lin, device):
     gen = torch.Generator().manual_seed(SEED)
     rec = {}
     for dtype in (torch.float32, torch.float64):
-        for n in (128, 64):
+        for n in PANEL_SIZES:
             for kind in ("pd", "indef", "zero_pivot"):
                 if kind == "zero_pivot":
                     A = torch.as_tensor(exact_zero_pivot_panel(n, n),
@@ -253,8 +295,8 @@ def check_large_kernels(ll, lin, device):
                         f"panel_ldlt differs from its plain version: n={n} "
                         f"{dtype} {kind}, max|dd|="
                         f"{float((d - dr).abs().max())}")
-        print(f"  ok panel_ldlt {str(dtype):14s} n=128, 64 (pd, indef, "
-              f"zero pivot): bitwise equal", flush=True)
+        print(f"  ok panel_ldlt {str(dtype):14s} n={PANEL_SIZES} (pd, "
+              f"indef, zero pivot): bitwise equal", flush=True)
 
     sweep_err = {"bwd_sweep_panels": 0.0, "bwd_sweep_blocks": 0.0}
     for dtype in (torch.float32, torch.float64):
@@ -274,13 +316,13 @@ def check_large_kernels(ll, lin, device):
                     ("bwd_sweep_blocks", ll.bwd_sweep_blocks, Lb, invb)):
                 x = fn(Lf, z, inv)
                 xr = ll.bwd_sweep_ref(Lf, z, inv)
-                x2 = fn(Lf, z, inv)
+                again = [fn(Lf, z, inv) for _ in range(20)]
                 torch.cuda.synchronize()
                 e = rel_norm(x, xr)
                 if not e <= tol:
                     raise AssertionError(f"{name} K={Dk + Mk} {dtype}: "
                                          f"relative error {e} > {tol}")
-                if not torch.equal(x, x2):
+                if not all(torch.equal(x, x2) for x2 in again):
                     raise AssertionError(f"{name} is not deterministic")
                 if dtype == torch.float32 and Dk == 4096:
                     sweep_err[name] = float((x - xr).abs().max())
@@ -304,28 +346,34 @@ def check_large_kernels(ll, lin, device):
                                         (dq - ll.panel_ldlt_ref(panel)[1])
                                         .abs().max())),
         ms=cuda_ms(lambda: ll.panel_ldlt(panel), 200),
+        device_ms=device_ms(lambda: ll.panel_ldlt(panel),
+                            ("panel_ldlt_kernel",)),
         plain_ms=cuda_ms(lambda: ll.panel_ldlt_ref(panel), 10),
         library_ms=None,
         bound=bound(2 * 128 * 128 * 4 + 128 * 4, 2 * 128 ** 3 / 3,
                     F32_FLOPS),
         shape=[128, 128])
-    for name, fn, Lf, inv in (
-            ("bwd_sweep_panels", ll.bwd_sweep_panels, Lp, invp),
-            ("bwd_sweep_blocks", ll.bwd_sweep_blocks, Lb, invb)):
+    for name, fn, Lf, inv, kernels in (
+            ("bwd_sweep_panels", ll.bwd_sweep_panels, Lp, invp,
+             ("sweep_panels_kernel",)),
+            ("bwd_sweep_blocks", ll.bwd_sweep_blocks, Lb, invb,
+             ("sweep_partial_kernel", "sweep_finish_kernel"))):
         Lt = Lf.mT
         rec[name] = dict(
             max_abs_err=sweep_err[name],
             ms=cuda_ms(lambda: fn(Lf, z, inv), 50),
+            device_ms=device_ms(lambda: fn(Lf, z, inv), kernels),
             plain_ms=cuda_ms(lambda: ll.bwd_sweep_ref(Lf, z, inv), 20),
             library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
                 Lt, z[:, None], upper=True, unitriangular=True), 20),
             bound=sweep_bound(Hs.shape[0], inv.shape[-1]),
             shape=[npad, inv.shape[-1]])
     for name, r in rec.items():
-        print(f"  f32 {name} at {r['shape']}: {r['ms']:.4f} ms (plain "
+        print(f"  f32 {name} at {r['shape']}: {r['ms']:.4f} ms per call "
+              f"(CUDA events, median), device {r['device_ms'][0]:.4f} ms "
+              f"per call (by {r['device_ms'][1]}), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-              f"{r['bound'][0]:.5f} ms by {r['bound'][1]}), CUDA events, "
-              f"median", flush=True)
+              f"{r['bound'][0]:.5f} ms by {r['bound'][1]}", flush=True)
     return rec
 
 
@@ -548,6 +596,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_,
                 "max_abs_err": rec_["max_abs_err"], "ms": rec_["ms"],
+                "device_ms": rec_["device_ms"][0],
+                "device_ms_by": rec_["device_ms"][1],
                 "plain_ms": rec_["plain_ms"], "bound_ms": rec_["bound"][0],
                 "bound_by": rec_["bound"][1],
                 "library_ms": rec_["library_ms"], "shape": shape}
@@ -559,19 +609,21 @@ def main() -> int:
         row("ldlt_factor_small", "pyipm_tpu/ops/pallas_ldlt.py:49", small,
             launches["factor"],
             dict(max_abs_err=err["factor"], ms=t16["factor"],
-                 plain_ms=t16["factor_plain"], bound=t16["factor_bound"],
+                 device_ms=t16["factor_device"], plain_ms=t16["factor_plain"],
+                 bound=t16["factor_bound"],
                  library_ms=None), [B, 16]),
         row("ldlt_solve_small", "pyipm_tpu/ops/pallas_ldlt.py:92", small,
             launches["solve"],
             dict(max_abs_err=err["solve"], ms=t16["solve"],
-                 plain_ms=t16["solve_plain"], bound=t16["solve_bound"],
+                 device_ms=t16["solve_device"], plain_ms=t16["solve_plain"],
+                 bound=t16["solve_bound"],
                  library_ms=t16["solve_library"]), [B, 16]),
         row("panel_ldlt", "pyipm_tpu/ops/pallas_ldlt.py:198",
             "pyipm_tpu_torch/csrc/panel_ldlt.cu",
             sum(p["panel_ldlt"] for p in path_launches.values()),
             big["panel_ldlt"], big["panel_ldlt"]["shape"]),
         row("bwd_sweep_panels", "pyipm_tpu/ops/pallas_ldlt.py:523",
-            "pyipm_tpu_torch/csrc/bwd_sweep.cu",
+            "pyipm_tpu_torch/csrc/bwd_sweep_panels.cu",
             path_launches["ldlt"]["bwd_sweep_panels"],
             big["bwd_sweep_panels"], big["bwd_sweep_panels"]["shape"]),
         row("bwd_sweep_blocks", "pyipm_tpu/ops/pallas_ldlt.py:386",

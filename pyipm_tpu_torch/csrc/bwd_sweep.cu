@@ -1,25 +1,22 @@
-// Backward block substitution L^T x = z for Hopper (sm_90a), from the
-// inverses of the diagonal blocks of a unit-lower factor.
+// Backward superblock substitution L^T x = z for Hopper (sm_90a), from the
+// inverses of the diagonal superblocks of a unit-lower factor.
 //
-// Replaces two Pallas TPU kernels of pyipm_tpu/ops/pallas_ldlt.py:
-//   - _bwd_sweep_panels_kernel (:523) via bwd_sweep_panels (:652), which
-//     reads the 128-wide panel inverses invp (npad/128, 128, 128);
-//   - _bwd_sweep_kernel (:386) via bwd_sweep_blocks (:452), which reads the
-//     superblock inverses invb (npad/w, w, w), w = group * 128.
-// Both compute one recurrence at a different block width w, for k from the
-// last block down to 0:
+// Replaces the Pallas TPU kernel _bwd_sweep_kernel (pyipm_tpu/ops/
+// pallas_ldlt.py:386) via bwd_sweep_blocks (:452), which reads the
+// superblock inverses invb (npad/w, w, w), w = group * 128 (1024 on the
+// main path).  For k from the last block down to 0:
 //     x_k = inv_k^T (z_k - Lp[(k+1)w:, kw:(k+1)w]^T x[(k+1)w:])
 // Lp is the (npad, npad) row-major factor padded to the block grid and z
-// the forward-substituted, diagonal-scaled right-hand side.  One template
-// serves both entry points; the panel form does no in-block substitution
-// (the TPU kernel's stashed diagonal superblock exists to keep its grid
-// steps large, a limit of the TPU's sequential grid that Hopper lacks).
+// the forward-substituted, diagonal-scaled right-hand side.  (The 128-wide
+// panel form of the same recurrence is bwd_sweep_panels.cu, one launch
+// chained by flags; at w = 1024 inv_k is 4 MB in f32 and fits no CTA, so
+// that design does not carry over as it is.)
 //
 // What bounds it: each call reads the strictly-lower part of Lp once
 // (~K^2/2 values) plus the inverses, so bytes, not operations (2 flops per
-// value read), and at K = 4352 those bytes are ~38 MB + 2.6 MB (invp) or
-// + 21 MB (invb): ~12-18 us at 3.35 TB/s.  But the recurrence is a chain of
-// npad/w dependent steps, so the design spreads each step over the card:
+// value read), and at K = 4352 those bytes are ~38 MB + 21 MB (invb):
+// ~18 us at 3.35 TB/s.  But the recurrence is a chain of npad/w dependent
+// steps, so the design spreads each step over the card:
 //   1. sweep_partial: the slab product Lp[(k+1)w:, kw:(k+1)w]^T x[(k+1)w:]
 //      split over CTAs by row chunk (R rows) and column tile (128 columns),
 //      one coalesced row read per warp group; each CTA writes its partial

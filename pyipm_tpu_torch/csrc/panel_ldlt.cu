@@ -13,17 +13,35 @@
 // rounded in that order, with the _rn intrinsics so the compiler cannot
 // contract it into an FMA.  At a zero pivot the panel kernel therefore
 // still subtracts l l^T, where the lane kernel subtracts 0.  Only the lower
-// triangle is read or updated: L and d depend on nothing else.
+// triangle is read for L and d.  Every entry sees the same operations in
+// the same order as in the plain version (panel_ldlt_ref), so the two are
+// bitwise equal.
 //
 // What bounds it: the panel is 64 KB in f32 and the factorization does
-// ~n^3/3 = 0.7 MFLOP, so neither bytes nor operations matter; the bound is
-// the n-step dependency chain (every column needs the previous step's
-// update).  The design: one CTA holds the whole panel in shared memory
-// (stride n + 1, so a column walk hits distinct banks; 66 KB in f32, 132 KB
-// in f64, above the 48 KB default, hence the opt-in attribute) and all its
-// threads split each step's division and trailing update, two barriers per
-// step.  The trailing update walks rows by warp and columns by lane, so the
-// strict upper triangle costs nothing.
+// ~n^3/3 = 0.7 MFLOP, so neither bytes nor operations: the bound is the
+// n-step dependency chain (every column needs the previous step's update),
+// one column update, a broadcast, a division and a hand-off per step.
+//
+// The design: one CTA of 16 warps keeps the lower triangle in registers,
+// spread cyclically so that the shrinking trailing triangle stays balanced:
+// warp w holds columns {w + 16 b, b < 8}, lane l rows {l + 32 s, s < 4},
+// 32 entries a thread (column slots left of the trailing triangle, row
+// slots above it and slot pairs wholly above the diagonal are skipped).
+// The input and the output pass once through shared memory (stride n + 1,
+// conflict-free), so the global accesses coalesce.  Only the step's vectors
+// l and l * safe go through shared memory, in a ring of 32 buffers, each
+// with an mbarrier that the 32 lanes of its writer complete: the warp that
+// owns column j+1 waits for step j, applies it to that column, broadcasts
+// d_{j+1} by shuffle, divides the column, publishes step j+1 and only then
+// updates its other columns.  No CTA-wide barrier in the loop: each warp
+// waits only for the vectors it reads.
+//
+// On an H100 (PERF.md) that is ~0.25 us per step at n = 128, f32, about 3x
+// faster than the panel in shared memory with two CTA barriers per step,
+// but short of the ~0.1 us that one step's latencies add up to: the two
+// operations of each update (no FMA, for the bitwise equality) and the
+// per-step overhead of 16 warps keep the owner's partition of the SM busy
+// while it walks the chain.
 //
 // Build: see pyipm_tpu_torch/ops/_build.py (one object per source, linked
 // into one shared library with a plain C interface).
@@ -36,7 +54,12 @@ namespace {
 
 constexpr int kPanelThreads = 512;
 constexpr int kWarp = 32;
+constexpr int kWarps = kPanelThreads / kWarp;     // 16
 constexpr int kMaxPanel = 128;
+constexpr int kRowSlots = kMaxPanel / kWarp;      // 4 rows per lane
+constexpr int kColSlots = kMaxPanel / kWarps;     // 8 columns per warp
+constexpr int kBufs = 32;                         // ring of step vectors
+constexpr int kVecs = kBufs * 2 * kMaxPanel;      // each (l, l * safe)
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -45,53 +68,185 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
+// One step's update of this thread's entries of column slot b, row slots
+// s0.. (the ones below are wholly above the trailing triangle):
+// a_rc -= (l_r * safe) * l_c.  Row slot s holds rows < 32 s + 32, column
+// slot b columns >= 16 b, so for b > 2 s + 1 the pair is wholly above the
+// diagonal and is skipped; the entries above the diagonal or past n that
+// remain get harmless updates that are never read.
 template <typename T>
-__global__ void __launch_bounds__(kPanelThreads)
+__device__ __forceinline__ void update_column(T (&a)[kRowSlots][kColSlots],
+                                              int b, int s0, T lc,
+                                              const T (&ls)[kRowSlots]) {
+#pragma unroll
+  for (int s = s0; s < kRowSlots; ++s)
+    if (kWarps * b < kWarp * (s + 1))
+      a[s][b] = sub_rn(a[s][b], mul_rn(ls[s], lc));
+}
+
+// A step's vectors in one buffer: l_c of column c at [c], l_r * safe of
+// row r at [kMaxPanel + r].
+template <typename T>
+__device__ __forceinline__ void load_lsaf(const T* v, int s0, int lane,
+                                          T (&ls)[kRowSlots]) {
+#pragma unroll
+  for (int s = s0; s < kRowSlots; ++s)
+    ls[s] = v[kMaxPanel + lane + kWarp * s];
+}
+
+// The step with vectors v (and this thread's l * safe, ls) applied to this
+// warp's columns c > cmin (all in column slot b0 and above, cmin >= 16 b0
+// - 1).
+template <typename T>
+__device__ __forceinline__ void update_step(T (&a)[kRowSlots][kColSlots],
+                                            const T* v,
+                                            const T (&ls)[kRowSlots], int b0,
+                                            int s0, int warp, int cmin) {
+  if (warp + kWarps * b0 > cmin)
+    update_column(a, b0, s0, v[warp + kWarps * b0], ls);
+#pragma unroll
+  for (int b = b0 + 1; b < kColSlots; ++b)
+    update_column(a, b, s0, v[warp + kWarps * b], ls);
+}
+
+// The ring's barriers: one per buffer, completed by the 32 lanes of the
+// warp that writes the buffer's vectors (release), waited on by every
+// warp before it reads them (acquire).
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  unsigned long long state;
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];"
+               : "=l"(state)
+               : "r"((unsigned)__cvta_generic_to_shared(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+
+// Pivot column c, held in column slot b and with its diagonal in row slot
+// sd of the calling warp: broadcast d_c, divide the rows below it and
+// write the step's vectors (0 off the column) into buffer v.  b and sd
+// must be known at compile time (unrolled loop indices), or the register
+// array goes to local memory.
+template <typename T>
+__device__ __forceinline__ void pivot_column(T (&a)[kRowSlots][kColSlots],
+                                             int b, int sd, int c, int n,
+                                             int lane, T* v) {
+  const T dc = __shfl_sync(0xffffffffu, a[sd][b], c % kWarp);
+  const T safe = (fabs(dc) > T(0)) ? dc : T(1);
+#pragma unroll
+  for (int s = sd; s < kRowSlots; ++s) {
+    const int r = lane + kWarp * s;
+    const bool below = r > c && r < n;
+    const T q = div_rn(below ? a[s][b] : safe, safe);
+    if (below) a[s][b] = q;
+    const T l = below ? q : T(0);
+    v[r] = l;
+    v[kMaxPanel + r] = mul_rn(l, safe);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPanelThreads, 1)
 panel_ldlt_kernel(const T* __restrict__ A, T* __restrict__ L,
                   T* __restrict__ d, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
+  auto* bars = reinterpret_cast<unsigned long long*>(smem_raw);  // (32,)
+  T* vec = reinterpret_cast<T*>(smem_raw + kBufs * sizeof(*bars));
+  T* s = vec + kVecs;                      // (n, n + 1): A in, L and d out
   const int ld = n + 1;
-  T* lcol = a + n * ld;     // l_i of the current step
-  T* lsaf = lcol + n;       // l_i * safe of the current step
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const int warp = tid / kWarp;
   const int lane = tid % kWarp;
-  const int nwarps = nt / kWarp;
 
-  for (int t = tid; t < n * n; t += nt) a[(t / n) * ld + (t % n)] = A[t];
+  if (tid < kBufs) mbar_init(bars + tid, kWarp);
+  for (int r = warp; r < n; r += kWarps)
+    for (int c = lane; c < n; c += kWarp) s[r * ld + c] = A[r * n + c];
+  for (int t = tid; t < kVecs; t += kPanelThreads) vec[t] = T(0);
   __syncthreads();
 
-  for (int j = 0; j < n; ++j) {
-    const T dj = a[j * ld + j];
-    const T safe = (fabs(dj) > T(0)) ? dj : T(1);
-    for (int i = j + 1 + tid; i < n; i += nt) {
-      const T l = div_rn(a[i * ld + j], safe);
-      a[i * ld + j] = l;
-      lcol[i] = l;
-      lsaf[i] = mul_rn(l, safe);
+  T a[kRowSlots][kColSlots];
+#pragma unroll
+  for (int sl = 0; sl < kRowSlots; ++sl)
+#pragma unroll
+    for (int b = 0; b < kColSlots; ++b) {
+      const int r = lane + kWarp * sl, c = warp + kWarps * b;
+      a[sl][b] = (r < n && c < n) ? s[r * ld + c] : T(0);
     }
-    __syncthreads();
-    // a_rc -= (l_r * safe) * l_c for j < c <= r
-    for (int r = j + 1 + warp; r < n; r += nwarps) {
-      const T lr = lsaf[r];
-      for (int c = j + 1 + lane; c <= r; c += kWarp)
-        a[r * ld + c] = sub_rn(a[r * ld + c], mul_rn(lr, lcol[c]));
-    }
-    __syncthreads();
-  }
 
-  for (int t = tid; t < n * n; t += nt) {
-    const int r = t / n, c = t % n;
-    L[t] = (r > c) ? a[r * ld + c] : (r == c ? T(1) : T(0));
+  // Pass nx pivots column nx = 16 b0 + w0, held by warp w0 in column slot
+  // b0, its diagonal in row slot s0 = b0 / 2.  Every warp waits for the vectors
+  // of step nx - 1 (buffer (nx - 1) % 32); the owner applies them to
+  // column nx, pivots, publishes step nx and only then updates its other
+  // columns, so its path from one step's vectors to the next is one
+  // column's update and the pivot.  No CTA barrier: a warp waits only for
+  // the vectors it reads, and none falls more than 17 steps behind (it
+  // owns one pass in 16), so a ring of 32 buffers is never overwritten
+  // while read.  Columns of slots below b0 and rows of row slots below s0
+  // are done, so b0, an unrolled index, bounds every loop
+  // statically and every register index is static.
+#pragma unroll
+  for (int b0 = 0; b0 < kColSlots; ++b0) {
+    const int s0 = kWarps * b0 / kWarp;      // row slot of the diagonal
+    for (int w0 = 0; w0 < kWarps; ++w0) {
+      const int nx = kWarps * b0 + w0;
+      if (nx >= n) break;
+      const int j = nx - 1;                          // the step applied
+      const T* cur = vec + (j & (kBufs - 1)) * 2 * kMaxPanel;
+      T ls[kRowSlots];
+      if (nx > 0) {
+        mbar_wait(bars + (j & (kBufs - 1)), (j / kBufs) & 1);
+        load_lsaf(cur, s0, lane, ls);
+      }
+      if (warp == w0) {
+        if (nx > 0) update_column(a, b0, s0, cur[nx], ls);
+        pivot_column(a, b0, s0, nx, n, lane,
+                     vec + (nx & (kBufs - 1)) * 2 * kMaxPanel);
+        mbar_arrive(bars + (nx & (kBufs - 1)));
+      }
+      if (nx > 0) update_step(a, cur, ls, b0, s0, warp, nx);
+    }
   }
-  for (int t = tid; t < n; t += nt) d[t] = a[t * ld + t];
+  __syncthreads();
+
+  // lower triangle (L below, d on the diagonal) back through shared memory
+#pragma unroll
+  for (int sl = 0; sl < kRowSlots; ++sl)
+#pragma unroll
+    for (int b = 0; b < kColSlots; ++b) {
+      const int r = lane + kWarp * sl, c = warp + kWarps * b;
+      if (r < n && c <= r) s[r * ld + c] = a[sl][b];
+    }
+  __syncthreads();
+  for (int r = warp; r < n; r += kWarps)
+    for (int c = lane; c < n; c += kWarp)
+      L[r * n + c] = (r > c) ? s[r * ld + c] : (r == c ? T(1) : T(0));
+  for (int t = tid; t < n; t += kPanelThreads) d[t] = s[t * ld + t];
 }
 
 template <typename T>
 constexpr size_t panel_smem(int n) {
-  return ((size_t)n * (n + 1) + 2 * (size_t)n) * sizeof(T);
+  return kBufs * sizeof(unsigned long long) +
+         ((size_t)n * (n + 1) + kVecs) * sizeof(T);
 }
 
 // The shared-memory opt-in belongs to the function on one device.  It is set

@@ -103,6 +103,7 @@ def load() -> ctypes.CDLL:
         "pyipm_ldlt_solve": [P, P, P, P, I, I, P],
         "pyipm_panel_ldlt": [P, P, P, I, P],
         "pyipm_bwd_sweep": [P, P, P, P, P, I, I, I, P],
+        "pyipm_bwd_sweep_panels": [P, P, P, P, P, I, P],
     }
     for name, args in signatures.items():
         for dt in DTYPES.values():

@@ -1,6 +1,6 @@
 """Kernels of the large-K factorization and solve: the Hopper kernels of
-``csrc/panel_ldlt.cu`` and ``csrc/bwd_sweep.cu`` and their plain PyTorch
-versions.
+``csrc/panel_ldlt.cu``, ``csrc/bwd_sweep_panels.cu`` and
+``csrc/bwd_sweep.cu`` and their plain PyTorch versions.
 
   - :func:`panel_ldlt` — LDL^T of one n x n diagonal panel (n <= 128),
     counterpart of the Pallas ``_panel_kernel`` / ``panel_ldlt``
@@ -9,13 +9,14 @@ versions.
     substitution L^T x = z from the padded factor and the inverses of its
     128-wide panels or of its superblocks, counterparts of the Pallas
     ``_bwd_sweep_panels_kernel`` and ``_bwd_sweep_kernel``
-    (pallas_ldlt.py:386-670).  One CUDA template serves both.
+    (pallas_ldlt.py:386-670).
 
 The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
-counts kernel launches per wrapper; nothing else adds to it.  A sweep is one
-launch of the wrapper: on the stream it runs two short kernels per block
-step of the recurrence (see ``csrc/bwd_sweep.cu``).
+counts kernel launches per wrapper; nothing else adds to it.  The panel
+sweep is one kernel launch whose CTAs chain the block steps by flags in
+device memory (``csrc/bwd_sweep_panels.cu``); the superblock sweep runs two
+short kernels per block step on the stream (``csrc/bwd_sweep.cu``).
 """
 
 from __future__ import annotations
@@ -87,45 +88,79 @@ def panel_ldlt(A):
     return L, d
 
 
-def _sweep(name, Lp, z, inv):
+def _check_sweep(name, Lp, z, inv, max_w):
+    """Raise unless (Lp, z, inv) are a sweep's operands with block width
+    w <= ``max_w``; returns (npad, nsteps, w)."""
     if Lp.dim() != 2 or inv.dim() != 3:
         raise ValueError(f"{name}: Lp must be (npad, npad) and the inverses "
                          f"(nsteps, w, w), got {tuple(Lp.shape)}, "
                          f"{tuple(inv.shape)}")
     npad = Lp.shape[0]
     nsteps, w, _ = inv.shape
-    if nsteps * w != npad or not 0 < w <= SWEEP_MAX_W:
+    if nsteps * w != npad or not 0 < w <= max_w:
         raise ValueError(f"{name}: {nsteps} blocks of {w} do not tile "
-                         f"npad = {npad} (w <= {SWEEP_MAX_W})")
+                         f"npad = {npad} (w <= {max_w})")
     dt, dev = Lp.dtype, Lp.device
     _build.check_operand("Lp", Lp, (npad, npad), dt, dev)
     _build.check_operand("z", z, (npad,), dt, dev)
     _build.check_operand("inv", inv, (nsteps, w, w), dt, dev)
-    if dev.type == "cpu":
-        return bwd_sweep_ref(Lp, z, inv)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no kernel for device {dev}")
+    return npad, nsteps, w
+
+
+def panel_sweep_flags(npad: int, device):
+    """The panel sweep's scratch: one int32 ready flag per 128-block of
+    x, zeroed (the kernel sets flag k once x_k is written).  Fresh per
+    call from the caching allocator, so concurrent sweeps on other streams
+    never share flags."""
+    if npad <= 0 or npad % MAX_PANEL:
+        raise ValueError(f"npad = {npad} is not a positive multiple of "
+                         f"{MAX_PANEL}")
+    return torch.zeros((npad // MAX_PANEL,), dtype=torch.int32,
+                       device=device)
+
+
+def bwd_sweep_panels(Lp, z, invp):
+    """x with L^T x = z from the grid-padded factor Lp (npad, npad), the
+    diagonal-scaled forward-substituted z (npad,) and the 128-panel
+    inverses invp (npad/128, 128, 128).  CUDA: the hand-written one-launch
+    sweep; CPU: plain."""
+    name = "bwd_sweep_panels"
+    npad, _, w = _check_sweep(name, Lp, z, invp, MAX_PANEL)
+    if w != MAX_PANEL:
+        raise ValueError(f"{name}: the inverses must be {MAX_PANEL}-wide "
+                         f"panels, got w = {w}")
+    if Lp.device.type == "cpu":
+        return bwd_sweep_ref(Lp, z, invp)
+    for arg, t in (("Lp", Lp), ("invp", invp)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned (the "
+                             f"kernel reads it in 16-byte words)")
+    x = torch.empty_like(z)
+    ready = panel_sweep_flags(npad, Lp.device)
+    _build.launch("pyipm_bwd_sweep_panels", name, Lp.dtype, Lp.device,
+                  Lp.data_ptr(), z.data_ptr(), invp.data_ptr(), x.data_ptr(),
+                  ready.data_ptr(), npad)
+    LAUNCHES[name] += 1
+    return x
+
+
+def bwd_sweep_blocks(Lp, z, invb):
+    """The same x from the superblock inverses invb (npad/w, w, w).  CUDA:
+    the hand-written two-launches-per-block-step sweep; CPU: plain."""
+    name = "bwd_sweep_blocks"
+    npad, _, w = _check_sweep(name, Lp, z, invb, SWEEP_MAX_W)
+    if Lp.device.type == "cpu":
+        return bwd_sweep_ref(Lp, z, invb)
     # rows per partial-sum chunk: enough CTAs per step to spread the slab
     # over the SMs, few enough partial rows for the finishing CTAs to sum
     R = 64 if w <= 128 else 256
     nch = -(-(npad - w) // R)
     x = torch.empty_like(z)
     partial = Lp.new_empty((max(nch, 1) * w,))
-    _build.launch("pyipm_bwd_sweep", name, dt, dev, Lp.data_ptr(),
-                  z.data_ptr(), inv.data_ptr(), x.data_ptr(),
+    _build.launch("pyipm_bwd_sweep", name, Lp.dtype, Lp.device,
+                  Lp.data_ptr(), z.data_ptr(), invb.data_ptr(), x.data_ptr(),
                   partial.data_ptr(), npad, w, R)
     LAUNCHES[name] += 1
     return x
-
-
-def bwd_sweep_panels(Lp, z, invp):
-    """x with L^T x = z from the grid-padded factor Lp (npad, npad), the
-    diagonal-scaled forward-substituted z (npad,) and the 128-panel
-    inverses invp (npad/128, 128, 128).  CUDA: the hand-written sweep;
-    CPU: plain."""
-    return _sweep("bwd_sweep_panels", Lp, z, invp)
-
-
-def bwd_sweep_blocks(Lp, z, invb):
-    """The same x from the superblock inverses invb (npad/w, w, w)."""
-    return _sweep("bwd_sweep_blocks", Lp, z, invb)

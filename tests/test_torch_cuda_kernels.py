@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of pyipm_tpu_torch/csrc (small_ldlt.cu,
-panel_ldlt.cu, bwd_sweep.cu) against their plain PyTorch versions, on the
-card.
+panel_ldlt.cu, bwd_sweep_panels.cu, bwd_sweep.cu) against their plain
+PyTorch versions, on the card.
 
 Imports torch and numpy only, so it runs on the card's machine, which has
 no JAX: ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.
@@ -69,25 +69,34 @@ def test_kernel_rejects_bad_input_on_the_card(card):
 
 def _zero_pivot_panel(n):
     """Exact-arithmetic panel with zero pivots (see
-    test_torch_large_ldlt.py)."""
+    test_torch_large_ldlt.py); at n < 5 the zero pivots wrap around."""
     rng = np.random.default_rng(n)
     Lr = np.tril(rng.integers(-1, 2, (n, n)), -1) + np.eye(n)
     d = rng.choice([1.0, -1.0, 2.0, -2.0], n)
-    d[[1, n // 3, n - 5]] = 0.0
+    d[np.array([1, n // 3, n - 5]) % n] = 0.0
     A = (Lr * np.where(d != 0, d, 1.0)) @ Lr.T
     A[d == 0, d == 0] -= 1.0
     return A
 
 
+def _indef_panel(rng, n):
+    """Symmetric indefinite, a dominant diagonal of alternating sign."""
+    sgn = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+    return 0.5 * _rand_sym(rng, 1, n)[0] + np.diag(sgn * n)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "zero_pivot"])
+@pytest.mark.parametrize("kind", ["random", "indef", "zero_pivot"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("n", [128, 64])
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 64, 100, 127, 128])
 def test_panel_kernel_bitwise_equal_to_plain(card, n, dtype, kind):
-    """Same arithmetic, no FMA contraction: bitwise equal L and d."""
+    """Same arithmetic, no FMA contraction: bitwise equal L and d, at
+    sizes that fill the kernel's register layout (16 warps x 8 columns,
+    32 lanes x 4 rows) partly, exactly and by one short."""
     rng = np.random.default_rng(n)
-    A = (_zero_pivot_panel(n) if kind == "zero_pivot"
-         else _rand_sym(rng, 1, n)[0])
+    A = {"random": lambda: _rand_sym(rng, 1, n)[0],
+         "indef": lambda: _indef_panel(rng, n),
+         "zero_pivot": lambda: _zero_pivot_panel(n)}[kind]()
     A = torch.as_tensor(A, dtype=getattr(torch, dtype), device=card)
     n0 = ll.LAUNCHES["panel_ldlt"]
     L, d = ll.panel_ldlt(A)
@@ -102,7 +111,7 @@ def test_panel_kernel_bitwise_equal_to_plain(card, n, dtype, kind):
 @pytest.mark.parametrize("K", [1900, 4352])
 def test_sweep_kernels_match_plain(card, K, dtype):
     """Both sweeps on real factors (npad 2048 and 5120): f32 within 1e-5,
-    f64 within 1e-10 relative, and the same bits on a second call."""
+    f64 within 1e-10 relative, and the same bits on 20 more calls."""
     rng = np.random.default_rng(K)
     dt = getattr(torch, dtype)
     A = torch.as_tensor(_rand_sym(rng, 1, K)[0] + K * np.eye(K), dtype=dt,
@@ -119,13 +128,41 @@ def test_sweep_kernels_match_plain(card, K, dtype):
         n0 = ll.LAUNCHES[name]
         x = fn(L, z, inv)
         xr = ll.bwd_sweep_ref(L, z, inv)
-        x2 = fn(L, z, inv)
+        again = [fn(L, z, inv) for _ in range(20)]
         torch.cuda.synchronize()
-        assert ll.LAUNCHES[name] == n0 + 2
+        assert ll.LAUNCHES[name] == n0 + 21
         err = float(torch.linalg.vector_norm(x - xr)
                     / torch.linalg.vector_norm(xr))
         assert err <= tol, (name, err)
-        assert torch.equal(x, x2), name
+        assert all(torch.equal(x, x2) for x2 in again), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("npad", [128, 256, 2048, 5120])
+def test_panel_sweep_kernel_one_launch(card, npad, dtype):
+    """The one-launch panel sweep on a random unit-lower factor: within
+    1e-5 (f32) or 1e-10 (f64) relative of the plain sweep, bitwise equal
+    over 20 repeated calls (a missing fence or an unordered sum would show),
+    one counted launch per call."""
+    rng = np.random.default_rng(npad)
+    Lp = (np.tril(rng.standard_normal((npad, npad)), -1) / np.sqrt(npad)
+          + np.eye(npad))
+    invp = np.stack([np.linalg.inv(Lp[k:k + 128, k:k + 128])
+                     for k in range(0, npad, 128)])
+    dt = getattr(torch, dtype)
+    Lp, invp, z = (torch.as_tensor(a, dtype=dt, device=card) for a in (
+        Lp, invp, rng.standard_normal(npad)))
+    n0 = ll.LAUNCHES["bwd_sweep_panels"]
+    xs = [ll.bwd_sweep_panels(Lp, z, invp) for _ in range(20)]
+    n1 = ll.LAUNCHES["bwd_sweep_panels"]
+    xr = ll.bwd_sweep_ref(Lp, z, invp)
+    torch.cuda.synchronize()
+    assert n1 == n0 + 20
+    err = float(torch.linalg.vector_norm(xs[0] - xr)
+                / torch.linalg.vector_norm(xr))
+    assert err <= (1e-5 if dtype == "float32" else 1e-10), err
+    assert all(torch.equal(xs[0], x) for x in xs[1:])
 
 
 @pytest.mark.cuda

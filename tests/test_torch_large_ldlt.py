@@ -160,6 +160,55 @@ def test_bwd_sweeps_match_xla_f64(rng, n):
     assert _rel(got, JL._bwd_sweep_xla(L, z, invb)) < 1e-10
 
 
+def _unit_lower_panels(rng, npad, dtype):
+    """A random unit-lower Lp (npad, npad), the inverses of its 128-wide
+    diagonal panels and a right-hand side, as numpy arrays."""
+    Lp = np.tril(rng.standard_normal((npad, npad), dtype=dtype), -1)
+    Lp = Lp / dtype(np.sqrt(npad)) + np.eye(npad, dtype=dtype)
+    invp = np.stack([np.linalg.inv(Lp[k:k + 128, k:k + 128].astype(np.float64))
+                     for k in range(0, npad, 128)]).astype(dtype)
+    return Lp, invp, rng.standard_normal(npad).astype(dtype)
+
+
+@pytest.mark.parametrize("nsteps", [1, 2])
+def test_bwd_sweep_ref_matches_xla_panels_f64(rng, nsteps):
+    """The plain sweep against the JAX XLA panel sweep and a dense
+    triangular solve, in float64, at one and two 128-blocks."""
+    Lp, invp, z = _unit_lower_panels(rng, 128 * nsteps, np.float64)
+    got = ll.bwd_sweep_ref(_T(Lp), _T(z), _T(invp)).numpy()
+    want = JL._bwd_sweep_panels_xla(jnp.asarray(Lp), jnp.asarray(z),
+                                    jnp.asarray(invp))
+    assert _rel(got, want) < 1e-10
+    assert _rel(got, np.linalg.solve(Lp.T, z)) < 1e-10
+
+
+@pytest.mark.parametrize("npad", [128, 256, 2048, 5120])
+def test_panel_sweep_wrapper_checks_and_flags(rng, npad):
+    """The one-launch panel sweep's wrapper: one zeroed int32 ready flag
+    per 128-block, 128-wide panels only, and on the CPU the plain sweep
+    (against a dense triangular solve, float32)."""
+    flags = ll.panel_sweep_flags(npad, "cpu")
+    assert flags.dtype == torch.int32
+    assert tuple(flags.shape) == (npad // 128,) and not bool(flags.any())
+    Lp, invp, z = _unit_lower_panels(rng, npad, np.float32)
+    Lp, invp, z = _T(Lp), _T(invp), _T(z)
+    with pytest.raises(ValueError, match="128-wide"):
+        ll.bwd_sweep_panels(Lp, z, torch.eye(64).repeat(npad // 64, 1, 1))
+    with pytest.raises(ValueError, match="tile"):
+        ll.bwd_sweep_panels(Lp, z, torch.eye(256).repeat(
+            max(npad // 256, 1), 1, 1))
+    x = ll.bwd_sweep_panels(Lp, z, invp)
+    want = torch.linalg.solve_triangular(Lp.T, z[:, None], upper=True,
+                                         unitriangular=True)[:, 0]
+    assert _rel(x.numpy(), want.numpy()) < 1e-5
+
+
+def test_panel_sweep_flags_need_whole_panels():
+    for npad in (0, 100, 200):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            ll.panel_sweep_flags(npad, "cpu")
+
+
 def test_sweep_wrapper_checks():
     Lp = torch.eye(256)
     with pytest.raises(ValueError, match="tile"):
