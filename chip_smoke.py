@@ -7,7 +7,9 @@ Phases, each raising on failure:
   2. build: compile every hand-written kernel source of
      pyipm_tpu_torch/csrc, one nvcc per source, all at once;
   3. kernels 1-2 (batched small LDL^T factor and solve) against their
-     plain PyTorch versions on the card, f32 and f64;
+     plain PyTorch versions on the card, f32 and f64; the solve also at
+     every lane layout (n = 1 to 128), with and without its row scale,
+     bitwise repeatable, and against a backward-error bound;
   4. slice A: the 10,000-QP float32 fleet through ``solve_batch`` on
      cuda:0, launch counters reset just before the timed solve;
   5. the same first 64 instances on CPU tensors (the plain path) against
@@ -15,7 +17,8 @@ Phases, each raising on failure:
   6. kernels 3-5 (panel LDL^T, backward panel and superblock sweeps)
      against their plain versions on the card, f32 and f64: the panel
      bitwise at n = 1 to 128, the sweeps at the K = 4352 factors (npad
-     5120) and at K = 1900 (npad 2048), bitwise repeatable;
+     5120) and at K = 1900 (npad 2048), bitwise repeatable, one launch
+     per call;
   7. the single-shot K = 4352 KKT factor+solve (``reg_solve_kkt``,
      want_solver=False), timed;
   8. slice B: the D = 4096, M = 256 dense NLP through ``solve`` on cuda:0,
@@ -44,6 +47,17 @@ import torch
 SEED, B, D, NLIN = 42, 10_000, 16, 4
 N_CROSS = 64
 KERNEL_SHAPES = ((10_000, 16), (10_000, 36), (129, 36), (1, 16), (512, 128))
+# the solve kernel's lane layouts (half-warps to n = 16, then 1 to 4 entries
+# per lane), at a batch that fills no CTA evenly; at the odd sizes from 69
+# a CTA holds one or two instances, so most CTAs' factors start off a
+# 16-byte boundary
+SOLVE_SIZES = (1, 15, 17, 31, 32, 33, 64, 69, 95, 97, 100, 127, 128)
+SOLVE_B = 1003
+# |L D L^T x - b| <= RESIDUAL_C n eps (|L||D||L^T||x| + |b|), per entry
+RESIDUAL_C = 2.0
+# an f32 instance with a pivot below this is ill-conditioned: only there is
+# the elementwise tolerance to the plain version widened (see check_solve)
+PIVOT_FLOOR = 1e-2
 PANEL_SIZES = (1, 2, 31, 33, 64, 100, 127, 128)
 TIMED_SHAPES = ((10_000, 16), (10_000, 36))
 # the dense NLP instance of phase 8, also solved by scripts/*dense_nlp*.py
@@ -89,24 +103,28 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, kernels, calls=50):
-    """(ms, method): device time per call of ``fn`` spent in the CUDA
-    kernels whose names contain one of ``kernels``, from ``torch.profiler``
-    over ``calls`` back-to-back calls, or, if it shows no device time, from
-    CUDA events around them, divided by ``calls``."""
+    """(ms, method, launches): device time per call of ``fn`` spent in the
+    CUDA kernels whose names contain one of ``kernels`` and their launches
+    per call, from ``torch.profiler`` over ``calls`` back-to-back calls, or,
+    if it shows no device time, from CUDA events around them, divided by
+    ``calls`` (launches None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and any(k in e.key for k in kernels))
-    if us > 0:
-        return us / calls / 1e3, "torch.profiler"
+    for _attempt in range(2):   # a trace now and then lacks a kernel's events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(k in e.key for k in kernels)]
+        us = sum(e.self_device_time_total for e in mine)
+        if us > 0:
+            return (us / calls / 1e3, "torch.profiler",
+                    sum(e.count for e in mine) / calls)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -114,7 +132,8 @@ def device_ms(fn, kernels, calls=50):
         fn()
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / calls, f"CUDA events over {calls} calls"
+    return (e0.elapsed_time(e1) / calls, f"CUDA events over {calls} calls",
+            None)
 
 
 def bound(nbytes, flops, peak_flops):
@@ -132,6 +151,51 @@ def reset(*counters):
 
 
 # ----------------------------------------------------------------------
+def solve_backward_error(L, d, b, x):
+    """Per instance, max_i |L D L^T x - b|_i / (n eps (|L||D||L^T||x| +
+    |b|)_i), evaluated in float64 with eps of the working type: the
+    componentwise backward error of substitution, in units of its bound."""
+    n = L.shape[-1]
+    eps = torch.finfo(L.dtype).eps
+    Ld, dd, xd, bd = L.double(), d.double(), x.double(), b.double()
+    M = (Ld * dd[:, None, :]) @ Ld.mT
+    Ma = (Ld.abs() * dd.abs()[:, None, :]) @ Ld.abs().mT
+    r = (torch.einsum("bij,bj->bi", M, xd) - bd).abs()
+    s = torch.einsum("bij,bj->bi", Ma, xd.abs()) + bd.abs()
+    return (r / (n * eps * s)).amax(dim=1)
+
+
+def check_solve(sl, L, d, b, x, xr, what):
+    """Hold a kernel solve x to its plain version xr.  The kernel subtracts
+    its products one by one, the plain version sums a row first, so they
+    differ by roundoff: the elementwise tolerance is f32 rtol 2e-3 / atol
+    6e-3, f64 1e-10.  An f32 instance with a pivot below PIVOT_FLOOR
+    amplifies that roundoff in both, so there, and only there, the
+    tolerance is widened by twice the plain version's own distance from the
+    float64 solve of the same factors.  And, leaning on neither, the
+    backward error must be within RESIDUAL_C of its bound.  Returns that
+    error's max and the number of instances widened."""
+    f32 = L.dtype == torch.float32
+    rtol, atol = (2e-3, 6e-3) if f32 else (1e-10,
+                                           1e-10 * float(xr.abs().max()))
+    own, widened = 0.0, 0
+    if f32:
+        ill = (d.abs().amin(dim=1) < PIVOT_FLOOR)[:, None]
+        widened = int(ill.sum())
+        x64 = sl.ldlt_solve_small_ref(L.double(), d.double(), b.double())
+        own = (xr.double() - x64).abs().amax(dim=1, keepdim=True) * ill
+    excess = float(((x - xr).abs().double()
+                    - (atol + rtol * xr.abs().double() + 2 * own)).max())
+    if not excess <= 0:
+        raise AssertionError(f"{what}: solve differs from its plain version "
+                             f"by {excess} more than the tolerance")
+    c = float(solve_backward_error(L, d, b, x).max())
+    if not c <= RESIDUAL_C:
+        raise AssertionError(f"{what}: backward error {c} > {RESIDUAL_C} "
+                             f"n eps (|L||D||L^T||x| + |b|)")
+    return c, widened
+
+
 def check_small_kernels(sl, device):
     """Phase 3; returns per-kernel error, timing and bound records."""
     gen = torch.Generator().manual_seed(SEED)
@@ -163,11 +227,10 @@ def check_small_kernels(sl, device):
                                      f"> {rec_tol} at {(Bn, n)} {dtype}")
             if dtype == torch.float32:
                 torch.testing.assert_close(d, dr, rtol=5e-3, atol=1e-3)
-                torch.testing.assert_close(x, xr, rtol=2e-3, atol=6e-3)
             else:
                 torch.testing.assert_close(d, dr, rtol=1e-10, atol=1e-10)
-                torch.testing.assert_close(
-                    x, xr, rtol=1e-10, atol=1e-10 * float(xr.abs().max()))
+            c, wide = check_solve(sl, Lr, dr, b, x, xr,
+                                  f"{(Bn, n)} {dtype}")
             if dtype == torch.float32 and (Bn, n) in TIMED_SHAPES:
                 err["factor"] = max(err["factor"],
                                     float((L - Lr).abs().max()),
@@ -175,8 +238,45 @@ def check_small_kernels(sl, device):
                 err["solve"] = max(err["solve"], float((x - xr).abs().max()))
             print(f"  ok {str(dtype):14s} B={Bn:5d} n={n:3d}  "
                   f"max|d-dref|={float((d - dr).abs().max()):.3e}  "
-                  f"max|x-xref|={float((x - xr).abs().max()):.3e}",
-                  flush=True)
+                  f"max|x-xref|={float((x - xr).abs().max()):.3e}  "
+                  f"backward error {c:.3f} of its bound, {wide} of {Bn} "
+                  f"instances with a pivot under {PIVOT_FLOOR} held to the "
+                  f"widened tolerance", flush=True)
+
+        # the solve at every lane layout, with and without the row scale
+        worst, wide = 0.0, 0
+        for n in SOLVE_SIZES:
+            A = rand_sym(gen, SOLVE_B, n, dtype, device)
+            b, sc = (torch.randn(SOLVE_B, n, generator=gen,
+                                 dtype=torch.float64).to(dtype).to(device)
+                     for _ in range(2))
+            sc = 0.25 + sc.abs()
+            L, d = sl.ldlt_factor_small(A)
+            for scale in (None, sc):
+                x = sl.ldlt_solve_small(L, d, b, scale=scale)
+                again = [sl.ldlt_solve_small(L, d, b, scale=scale)
+                         for _ in range(20)]
+                xr = sl.ldlt_solve_small_ref(L, d, b, scale)
+                what = (f"n={n} {dtype} "
+                        f"{'scaled' if scale is not None else 'plain'}")
+                if not all(torch.equal(x, x2) for x2 in again):
+                    raise AssertionError(f"{what}: not bitwise repeatable")
+                if scale is None:
+                    c, k = check_solve(sl, L, d, b, x, xr, what)
+                else:
+                    # the fused products are bitwise those taken outside
+                    outside = sc * sl.ldlt_solve_small(L, d, sc * b)
+                    if not torch.equal(x, outside):
+                        raise AssertionError(f"{what}: differs from the "
+                                             f"products taken outside")
+                    c, k = check_solve(sl, L, d, sc * b, x / sc, xr / sc,
+                                       what)
+                worst, wide = max(worst, c), wide + k
+        print(f"  ok ldlt_solve_small {str(dtype):14s} B={SOLVE_B} "
+              f"n={SOLVE_SIZES}, with and without scale: bitwise repeatable "
+              f"over 20 calls, backward error <= {worst:.3f} of its bound "
+              f"(c = {RESIDUAL_C}), {wide} instances held to the widened "
+              f"tolerance", flush=True)
 
     times = {}
     for Bn, n in TIMED_SHAPES:
@@ -198,14 +298,26 @@ def check_small_kernels(sl, device):
                 print(f"  torch.linalg.ldl_solve unavailable: {exc}",
                       flush=True)
         f4 = 4
+        sc = 0.25 + torch.rand(Bn, n, generator=gen).to(device)
+        solve_k = ("ldlt_solve_kernel",)
         times[n] = dict(
             factor=cuda_ms(lambda: sl.ldlt_factor_small(A), 50),
             factor_device=device_ms(lambda: sl.ldlt_factor_small(A),
                                     ("ldlt_factor_kernel",)),
             solve_device=device_ms(lambda: sl.ldlt_solve_small(L, d, b),
-                                   ("ldlt_solve_kernel",)),
+                                   solve_k),
             factor_plain=cuda_ms(lambda: sl.ldlt_factor_small_ref(A), 10),
             solve=cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), 50),
+            # the wrapper's enqueue floor: the same call at B = 1
+            solve_floor=cuda_ms(lambda: sl.ldlt_solve_small(
+                L[:1], d[:1], b[:1]), 50),
+            # scaled: one launch, against the products taken outside
+            solve_scaled=cuda_ms(lambda: sl.ldlt_solve_small(
+                L, d, b, scale=sc), 50),
+            solve_scaled_device=device_ms(lambda: sl.ldlt_solve_small(
+                L, d, b, scale=sc), solve_k),
+            solve_scaled_outside=cuda_ms(lambda: sc * sl.ldlt_solve_small(
+                L, d, (sc * b).contiguous()), 50),
             solve_plain=cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 10),
             solve_library=lib_solve,
             factor_bound=bound(Bn * (2 * n * n + n) * f4,
@@ -218,8 +330,12 @@ def check_small_kernels(sl, device):
               f"{t['factor_device'][1]}, plain {t['factor_plain']:.4f} ms, "
               f"bound {t['factor_bound'][0]:.5f} ms), solve "
               f"{t['solve']:.4f} ms (device {t['solve_device'][0]:.4f} ms, "
+              f"the wrapper at B=1 {t['solve_floor']:.4f} ms, "
               f"plain {t['solve_plain']:.4f} ms, ldl_solve {lib_solve} ms, "
-              f"bound {t['solve_bound'][0]:.5f} ms), CUDA events, median",
+              f"bound {t['solve_bound'][0]:.5f} ms), scaled solve "
+              f"{t['solve_scaled']:.4f} ms (device "
+              f"{t['solve_scaled_device'][0]:.4f} ms; products outside "
+              f"{t['solve_scaled_outside']:.4f} ms), CUDA events, median",
               flush=True)
     return err, times
 
@@ -329,6 +445,14 @@ def check_large_kernels(ll, lin, device):
                 print(f"  ok {name} {str(dtype):14s} K={Dk + Mk} npad={npad}"
                       f" w={inv.shape[-1]}: |x-xref|/|xref|={e:.3e}",
                       flush=True)
+            # a non-finite entry of z must reach x (the solver's NaN guard
+            # depends on it), though the tiles of invb above its diagonal,
+            # exact zeros, are skipped
+            zb = z.clone()
+            zb[Dk // 2] = float("nan")
+            xb = ll.bwd_sweep_blocks(Lb, zb, invb)
+            if bool(torch.isfinite(xb[Dk // 2])):
+                raise AssertionError("bwd_sweep_blocks lost a NaN of z")
             del Lp, dp, invp, Lb, db, invb, H, Hs
 
     # timings at the main path's shapes: f32, K = 4352 (npad 5120)
@@ -357,12 +481,25 @@ def check_large_kernels(ll, lin, device):
             ("bwd_sweep_panels", ll.bwd_sweep_panels, Lp, invp,
              ("sweep_panels_kernel",)),
             ("bwd_sweep_blocks", ll.bwd_sweep_blocks, Lb, invb,
-             ("sweep_partial_kernel", "sweep_finish_kernel"))):
+             ("sweep_blocks_kernel",))):
         Lt = Lf.mT
+        # one launch per sweep, by the profiler's count (it may drop a few
+        # of the 50 events, or now and then all of them: profile again, and
+        # fail rather than pass without the count)
+        for _attempt in range(4):
+            dev = device_ms(lambda: fn(Lf, z, inv), kernels)
+            if dev[2] is not None:
+                break
+        else:
+            raise AssertionError(f"{name}: the profiler showed none of its "
+                                 f"launches in 8 traces")
+        if not 0.5 < dev[2] < 1.5:
+            raise AssertionError(f"{name}: {dev[2]} kernel launches per call "
+                                 f"in the profile, expected 1")
         rec[name] = dict(
             max_abs_err=sweep_err[name],
             ms=cuda_ms(lambda: fn(Lf, z, inv), 50),
-            device_ms=device_ms(lambda: fn(Lf, z, inv), kernels),
+            device_ms=dev,
             plain_ms=cuda_ms(lambda: ll.bwd_sweep_ref(Lf, z, inv), 20),
             library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
                 Lt, z[:, None], upper=True, unitriangular=True), 20),
@@ -371,7 +508,8 @@ def check_large_kernels(ll, lin, device):
     for name, r in rec.items():
         print(f"  f32 {name} at {r['shape']}: {r['ms']:.4f} ms per call "
               f"(CUDA events, median), device {r['device_ms'][0]:.4f} ms "
-              f"per call (by {r['device_ms'][1]}), plain "
+              f"per call in {r['device_ms'][2]} launches (by "
+              f"{r['device_ms'][1]}), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
               f"{r['bound'][0]:.5f} ms by {r['bound'][1]}", flush=True)
     return rec
@@ -504,7 +642,13 @@ def main() -> int:
           f"flat_steps={stats['flat_steps']} "
           f"host_syncs_per_step={syncs_per_step:.2f} "
           f"launches_factor={launches['factor']} "
-          f"launches_solve={launches['solve']}", flush=True)
+          f"launches_solve={launches['solve']} (all kernel launches per "
+          f"flat step: not measured here, scripts/profile_fleet.py counts "
+          f"them)", flush=True)
+    fleet = dict(hit_rate=hit, mean_iters=float(its.mean()),
+                 max_iters=int(its.max()), wall_s=wall,
+                 flat_steps=stats["flat_steps"],
+                 host_syncs=stats["host_syncs"])
     if tuple(res.x.shape) != (B, D) or not bool(torch.isfinite(res.x).all()):
         raise AssertionError("fleet solution is not a finite (B, D) array")
     if hit < 0.99:
@@ -598,6 +742,7 @@ def main() -> int:
                 "max_abs_err": rec_["max_abs_err"], "ms": rec_["ms"],
                 "device_ms": rec_["device_ms"][0],
                 "device_ms_by": rec_["device_ms"][1],
+                "kernel_launches_per_call": rec_["device_ms"][2],
                 "plain_ms": rec_["plain_ms"], "bound_ms": rec_["bound"][0],
                 "bound_by": rec_["bound"][1],
                 "library_ms": rec_["library_ms"], "shape": shape}
@@ -627,11 +772,19 @@ def main() -> int:
             path_launches["ldlt"]["bwd_sweep_panels"],
             big["bwd_sweep_panels"], big["bwd_sweep_panels"]["shape"]),
         row("bwd_sweep_blocks", "pyipm_tpu/ops/pallas_ldlt.py:386",
-            "pyipm_tpu_torch/csrc/bwd_sweep.cu",
+            "pyipm_tpu_torch/csrc/bwd_sweep_blocks.cu",
             path_launches["condensed"]["bwd_sweep_blocks"],
             big["bwd_sweep_blocks"], big["bwd_sweep_blocks"]["shape"]),
     ], "launches_by_path": {"fleet": launches, **path_launches},
-        "kkt_4352": kkt, "dense_nlp": dense}
+        "ldlt_solve_small_timings": {
+            str(n): {"ms": t["solve"], "device_ms": t["solve_device"][0],
+                     "wrapper_floor_ms": t["solve_floor"],
+                     "scaled_ms": t["solve_scaled"],
+                     "scaled_device_ms": t["solve_scaled_device"][0],
+                     "scaled_outside_ms": t["solve_scaled_outside"],
+                     "bound_ms": t["solve_bound"][0]}
+            for n, t in times.items()},
+        "fleet": fleet, "kkt_4352": kkt, "dense_nlp": dense}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

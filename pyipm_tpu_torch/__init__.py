@@ -5,7 +5,7 @@ batch first on PyTorch tensors, with hand-written Hopper kernels for the
 batched small LDL^T factorization and solve (``csrc/small_ldlt.cu``) and,
 for KKT systems above 128, the panel LDL^T of the blocked factorization
 (``csrc/panel_ldlt.cu``) and the backward sweeps
-(``csrc/bwd_sweep_panels.cu``, ``csrc/bwd_sweep.cu``).
+(``csrc/bwd_sweep_panels.cu``, ``csrc/bwd_sweep_blocks.cu``).
 Imports torch and never jax.
 
 Public API:

@@ -42,76 +42,19 @@
 //
 // Build: see pyipm_tpu_torch/ops/_build.py.
 
-#include <cuda/atomic>
-#include <cuda_runtime.h>
-
 #include <algorithm>
-#include <atomic>
+
+#include "sweep_common.cuh"
 
 namespace {
 
-constexpr int kW = 128;                         // panel width
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;           // 16
-constexpr int kRows = kW / kWarps;              // tile rows per thread: 8
-constexpr int kCols = kW / 32;                  // tile columns per lane: 4
+using namespace sweep;
 
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const double* p, double v[4]) {
-  const double2 q0 = __ldg(reinterpret_cast<const double2*>(p));
-  const double2 q1 = __ldg(reinterpret_cast<const double2*>(p) + 1);
-  v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
-}
-__device__ __forceinline__ void shared4(const float* p, float v[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void shared4(const double* p, double v[4]) {
-  const double2 q0 = reinterpret_cast<const double2*>(p)[0];
-  const double2 q1 = reinterpret_cast<const double2*>(p)[1];
-  v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
-}
-__device__ __forceinline__ void put4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void put4(double* p, const double v[4]) {
-  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
-  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
-}
-
-// This thread's part of the tile at block row i, block column k: rows
-// i*128 + warp + 16 r (r < 8), columns k*128 + 4 lane .. +3.
+// The tile at block row i, block column k of Lp.
 template <typename T>
-__device__ __forceinline__ void load_tile(const T* Lp, long long npad, int i,
-                                          int k, int warp, int lane,
-                                          T tile[kRows][kCols]) {
-  const T* p = Lp + ((long long)i * kW + warp) * npad + k * kW + lane * kCols;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) load4(p + r * kWarps * npad, tile[r]);
-}
-
-// A legitimate wait is one step of the chain (microseconds).  A wait of
-// ~2^24 polls (seconds) means a producer that never ran: trap, so that the
-// launch fails with an error instead of holding the card.
-constexpr unsigned kMaxPolls = 1u << 24;
-
-__device__ __forceinline__ void wait_ready(int* flag) {
-  cuda::atomic_ref<int, cuda::thread_scope_device> f(*flag);
-  for (unsigned polls = 0; f.load(cuda::std::memory_order_acquire) == 0;)
-    if (++polls == kMaxPolls) __trap();
-}
-
-// Sum over the 16 warps' partial rows red (16, 128), in warp order, for
-// column tid < 128.
-template <typename T>
-__device__ __forceinline__ T sum_warps(const T* red, int tid) {
-  T s = red[tid];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) s += red[w * kW + tid];
-  return s;
+__device__ __forceinline__ const T* tile_at(const T* Lp, long long npad, int i,
+                                            int k) {
+  return Lp + (long long)i * kW * npad + k * kW;
 }
 
 template <typename T>
@@ -141,18 +84,17 @@ sweep_panels_kernel(const T* __restrict__ Lp, const T* __restrict__ z,
 
     T acc[kCols] = {};
     T tile[kRows][kCols];
-    if (k + 1 < nsteps) load_tile(Lp, npad, nsteps - 1, k, warp, lane, tile);
+    if (k + 1 < nsteps)
+      load_tile(tile_at(Lp, npad, nsteps - 1, k), npad, warp, lane, tile);
     for (int i = nsteps - 1; i > k; --i) {
-      wait_ready(ready + i);
+      wait_at_least(ready + i, 1);
       T xv[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
         xv[r] = __ldcg(x + i * kW + warp + r * kWarps);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[c] += tile[r][c] * xv[r];
-      if (i - 1 > k) load_tile(Lp, npad, i - 1, k, warp, lane, tile);
+      tile_product(tile, xv, acc);
+      if (i - 1 > k)
+        load_tile(tile_at(Lp, npad, i - 1, k), npad, warp, lane, tile);
     }
 
     // t = z_k - acc, the 16 warps' partials summed in warp order
@@ -189,43 +131,14 @@ constexpr size_t sweep_smem() {
   return (size_t)(kW * kW + kWarps * kW + kW) * sizeof(T);
 }
 
-// The shared-memory opt-in and the number of CTAs the card holds at once
-// belong to the function on one device: found once per device and type,
-// so that a call makes no CUDA runtime query of its own.
-constexpr int kMaxDevices = 64;
-
-template <typename T>
-cudaError_t resident_ctas(int* out) {
-  static std::atomic<int> cached[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices) {
-    *out = cached[dev].load(std::memory_order_acquire);
-    if (*out > 0) return cudaSuccess;
-  }
-  err = cudaFuncSetAttribute(sweep_panels_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sweep_smem<T>());
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sweep_panels_kernel<T>, kThreads, sweep_smem<T>());
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  if (per_sm * sms <= 0) return cudaErrorInvalidConfiguration;
-  *out = per_sm * sms;
-  if (dev < kMaxDevices) cached[dev].store(*out, std::memory_order_release);
-  return cudaSuccess;
-}
-
 template <typename T>
 int launch_sweep_panels(const void* Lp_, const void* z_, const void* invp_,
                         void* x_, void* ready_, int npad, void* stream) {
   if (npad <= 0 || npad % kW) return (int)cudaErrorInvalidValue;
+  static std::atomic<int> cached[kMaxDevices];
   int ctas = 0;
-  cudaError_t err = resident_ctas<T>(&ctas);
+  cudaError_t err = resident_ctas(sweep_panels_kernel<T>, cached,
+                                  sweep_smem<T>(), &ctas);
   if (err != cudaSuccess) return (int)err;
   const T* Lp = static_cast<const T*>(Lp_);
   const T* z = static_cast<const T*>(z_);

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled by ``nvcc`` into an object, all sources at
 once in parallel, and the objects are linked into ONE shared library with a
 plain C interface, at first use, into ``pyipm_tpu_torch/_build/`` (listed
-in ``.gitignore``).  The library name carries a hash of every source and
-the flags, so an edited source is rebuilt.  Nothing here runs at import.
+in ``.gitignore``).  The library name carries a hash of every source, every
+header (``csrc/*.cuh``) and the flags, so an edited file is rebuilt.
+Nothing here runs at import.
 
 Also what every wrapper shares: operand checks and the launch itself.
 """
@@ -48,7 +49,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -100,9 +101,9 @@ def load() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     signatures = {
         "pyipm_ldlt_factor": [P, P, P, I, I, P],
-        "pyipm_ldlt_solve": [P, P, P, P, I, I, P],
+        "pyipm_ldlt_solve": [P, P, P, P, P, I, I, P],
         "pyipm_panel_ldlt": [P, P, P, I, P],
-        "pyipm_bwd_sweep": [P, P, P, P, P, I, I, I, P],
+        "pyipm_bwd_sweep_blocks": [P, P, P, P, P, P, I, I, P],
         "pyipm_bwd_sweep_panels": [P, P, P, P, P, I, P],
     }
     for name, args in signatures.items():

@@ -1,6 +1,6 @@
 """Kernels of the large-K factorization and solve: the Hopper kernels of
 ``csrc/panel_ldlt.cu``, ``csrc/bwd_sweep_panels.cu`` and
-``csrc/bwd_sweep.cu`` and their plain PyTorch versions.
+``csrc/bwd_sweep_blocks.cu`` and their plain PyTorch versions.
 
   - :func:`panel_ldlt` — LDL^T of one n x n diagonal panel (n <= 128),
     counterpart of the Pallas ``_panel_kernel`` / ``panel_ldlt``
@@ -13,10 +13,11 @@
 
 The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
-counts kernel launches per wrapper; nothing else adds to it.  The panel
-sweep is one kernel launch whose CTAs chain the block steps by flags in
-device memory (``csrc/bwd_sweep_panels.cu``); the superblock sweep runs two
-short kernels per block step on the stream (``csrc/bwd_sweep.cu``).
+counts kernel launches per wrapper; nothing else adds to it.  Each sweep is
+one kernel launch whose CTAs chain the block steps by flags or counters in
+device memory (``csrc/bwd_sweep_panels.cu``, ``csrc/bwd_sweep_blocks.cu``).
+Both cut their work into 128 x 128 tiles, so on the card a block width that
+is no multiple of 128 raises.
 """
 
 from __future__ import annotations
@@ -109,6 +110,13 @@ def _check_sweep(name, Lp, z, inv, max_w):
     return npad, nsteps, w
 
 
+def _check_aligned(name, **tensors):
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned (the "
+                             f"kernel reads it in 16-byte words)")
+
+
 def panel_sweep_flags(npad: int, device):
     """The panel sweep's scratch: one int32 ready flag per 128-block of
     x, zeroed (the kernel sets flag k once x_k is written).  Fresh per
@@ -133,10 +141,7 @@ def bwd_sweep_panels(Lp, z, invp):
                          f"panels, got w = {w}")
     if Lp.device.type == "cpu":
         return bwd_sweep_ref(Lp, z, invp)
-    for arg, t in (("Lp", Lp), ("invp", invp)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be 16-byte aligned (the "
-                             f"kernel reads it in 16-byte words)")
+    _check_aligned(name, Lp=Lp, invp=invp)
     x = torch.empty_like(z)
     ready = panel_sweep_flags(npad, Lp.device)
     _build.launch("pyipm_bwd_sweep_panels", name, Lp.dtype, Lp.device,
@@ -146,21 +151,37 @@ def bwd_sweep_panels(Lp, z, invp):
     return x
 
 
+def blocks_sweep_scratch(npad: int, w: int, dtype, device):
+    """The one-launch superblock sweep's scratch, (counts, partials), for
+    n = npad/w superblocks of g = w/128 sub-blocks: 2 n g int32 counters,
+    zeroed (partials written per 128-group of x and of the slab sums), and
+    room for the partial 128-vectors themselves, n g g of x and
+    n g (n - 1) g of the slab sums, each written once before it is read.
+    Fresh per call from the caching allocator, so concurrent sweeps on
+    other streams never share them."""
+    if w <= 0 or w % MAX_PANEL or npad <= 0 or npad % w:
+        raise ValueError(f"npad = {npad}, w = {w}: the one-launch sweep "
+                         f"needs w a multiple of {MAX_PANEL} dividing npad")
+    n, g = npad // w, w // MAX_PANEL
+    counts = torch.zeros((2 * n * g,), dtype=torch.int32, device=device)
+    partials = torch.empty((n * g * (g + (n - 1) * g) * MAX_PANEL,),
+                           dtype=dtype, device=device)
+    return counts, partials
+
+
 def bwd_sweep_blocks(Lp, z, invb):
     """The same x from the superblock inverses invb (npad/w, w, w).  CUDA:
-    the hand-written two-launches-per-block-step sweep; CPU: plain."""
+    the hand-written one-launch sweep (w a multiple of 128, else it
+    raises); CPU: plain."""
     name = "bwd_sweep_blocks"
     npad, _, w = _check_sweep(name, Lp, z, invb, SWEEP_MAX_W)
     if Lp.device.type == "cpu":
         return bwd_sweep_ref(Lp, z, invb)
-    # rows per partial-sum chunk: enough CTAs per step to spread the slab
-    # over the SMs, few enough partial rows for the finishing CTAs to sum
-    R = 64 if w <= 128 else 256
-    nch = -(-(npad - w) // R)
+    _check_aligned(name, Lp=Lp, invb=invb)
+    counts, partials = blocks_sweep_scratch(npad, w, Lp.dtype, Lp.device)
     x = torch.empty_like(z)
-    partial = Lp.new_empty((max(nch, 1) * w,))
-    _build.launch("pyipm_bwd_sweep", name, Lp.dtype, Lp.device,
+    _build.launch("pyipm_bwd_sweep_blocks", name, Lp.dtype, Lp.device,
                   Lp.data_ptr(), z.data_ptr(), invb.data_ptr(), x.data_ptr(),
-                  partial.data_ptr(), npad, w, R)
+                  partials.data_ptr(), counts.data_ptr(), npad, w)
     LAUNCHES[name] += 1
     return x

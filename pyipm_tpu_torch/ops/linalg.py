@@ -530,7 +530,7 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
     eq_diag = (dsc * dsc) * eeq
 
     def scaled_solve(L_, d_, dsc_, rhs):
-        return dsc_ * ldlt_solve_small(L_, d_, (dsc_ * rhs).contiguous())
+        return ldlt_solve_small(L_, d_, rhs.contiguous(), scale=dsc_)
 
     L, dv = ldlt_factor_small(Hs.contiguous())
     ok0 = ldlt_inertia_ok(dv, target, eps_t)

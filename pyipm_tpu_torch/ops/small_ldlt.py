@@ -41,9 +41,12 @@ def ldlt_factor_small_ref(A):
     return L, d
 
 
-def ldlt_solve_small_ref(L, d, b):
+def ldlt_solve_small_ref(L, d, b, scale=None):
     """x = L^-T diag(d)^-1 L^-1 b for (B, n, n), (B, n), (B, n): forward
-    substitution, zero-guarded diagonal scale, backward substitution."""
+    substitution, zero-guarded diagonal scale, backward substitution.  With
+    ``scale`` (B, n): scale * solve(scale * b), each product on its own."""
+    if scale is not None:
+        b = scale * b
     n = b.shape[-1]
     y = torch.zeros_like(b)
     for j in range(n):
@@ -52,7 +55,7 @@ def ldlt_solve_small_ref(L, d, b):
     x = torch.zeros_like(b)
     for j in reversed(range(n)):
         x[:, j] = z[:, j] - torch.sum(L[:, j + 1:, j] * x[:, j + 1:], dim=-1)
-    return x
+    return x if scale is None else scale * x
 
 
 # ----------------------------------------------------------------------
@@ -78,9 +81,10 @@ def ldlt_factor_small(A):
     return L, d
 
 
-def ldlt_solve_small(L, d, b):
-    """(B, n, n), (B, n), (B, n) -> x (B, n).  CUDA: the hand-written
-    kernel; CPU: plain."""
+def ldlt_solve_small(L, d, b, scale=None):
+    """(B, n, n), (B, n), (B, n) -> x (B, n); with a row scale ``scale``
+    (B, n), scale * solve(scale * b) in the same launch.  CUDA: the
+    hand-written kernel; CPU: plain."""
     if L.dim() != 3 or L.shape[1] != L.shape[2]:
         raise ValueError(f"L must be (B, n, n), got {tuple(L.shape)}")
     B, n, _ = L.shape
@@ -89,8 +93,10 @@ def ldlt_solve_small(L, d, b):
     _build.check_operand("L", L, (B, n, n), L.dtype, L.device)
     _build.check_operand("d", d, (B, n), L.dtype, L.device)
     _build.check_operand("b", b, (B, n), L.dtype, L.device)
+    if scale is not None:
+        _build.check_operand("scale", scale, (B, n), L.dtype, L.device)
     if L.device.type == "cpu":
-        return ldlt_solve_small_ref(L, d, b)
+        return ldlt_solve_small_ref(L, d, b, scale)
     if L.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {L.device}")
     x = torch.empty_like(b)
@@ -98,6 +104,7 @@ def ldlt_solve_small(L, d, b):
         return x
     _build.launch("pyipm_ldlt_solve", "ldlt_solve_small", L.dtype,
                   L.device, L.data_ptr(), d.data_ptr(), b.data_ptr(),
+                  None if scale is None else scale.data_ptr(),
                   x.data_ptr(), B, n)
     LAUNCHES["solve"] += 1
     return x

@@ -156,7 +156,8 @@ def main():
                       f"{max(_dev_time(e, True) for e in rows) / 1e3:10.3f} "
                       f"{max(e.count for e in rows):5d}")
         launches = sum(e.count for e in avg if e.key in (
-            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+            "cudaLaunchCooperativeKernel"))
         print(f"[{solver}] kernel launch calls {launches}", flush=True)
         if args.trace_dir:
             prof.export_chrome_trace(os.path.join(

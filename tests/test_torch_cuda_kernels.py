@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of pyipm_tpu_torch/csrc (small_ldlt.cu,
-panel_ldlt.cu, bwd_sweep_panels.cu, bwd_sweep.cu) against their plain
-PyTorch versions, on the card.
+panel_ldlt.cu, bwd_sweep_panels.cu, bwd_sweep_blocks.cu)
+against their plain PyTorch versions, on the card.
 
 Imports torch and numpy only, so it runs on the card's machine, which has
 no JAX: ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.
@@ -31,13 +31,52 @@ def _rand_sym(rng, B, n):
     return (A + np.swapaxes(A, 1, 2)) / 2 + np.eye(n) * (n / 4)
 
 
+RESIDUAL_C = 2.0
+PIVOT_FLOOR = 1e-2
+
+
+def _solve_backward_error(L, d, b, x):
+    """Per instance, max_i |L D L^T x - b|_i / (n eps (|L||D||L^T||x| +
+    |b|)_i), evaluated in float64; eps of the working type.  Substitution
+    in any fixed order keeps it below a small constant (measured ~0.15)."""
+    n = L.shape[-1]
+    eps = torch.finfo(L.dtype).eps
+    Ld, dd, xd, bd = L.double(), d.double(), x.double(), b.double()
+    M = (Ld * dd[:, None, :]) @ Ld.mT
+    Ma = (Ld.abs() * dd.abs()[:, None, :]) @ Ld.abs().mT
+    r = (torch.einsum("bij,bj->bi", M, xd) - bd).abs()
+    s = torch.einsum("bij,bj->bi", Ma, xd.abs()) + bd.abs()
+    return (r / (n * eps * s)).amax(dim=1)
+
+
+def _assert_solve_close(L, d, b, x, xr, dtype):
+    """The kernel subtracts its products one by one, the plain version sums
+    a row first, so the two differ by roundoff.  Held to the plain version
+    within f32 rtol 2e-3 / atol 6e-3 (test_pallas_ldlt.py:54-56; f64
+    1e-10).  An f32 instance with a pivot below PIVOT_FLOOR amplifies the
+    roundoff of both: there, and only there, twice the plain version's own
+    distance from the float64 solve of the same factors is added.  And
+    every instance is held to the backward-error bound with c =
+    RESIDUAL_C."""
+    x64 = sl.ldlt_solve_small_ref(L.double(), d.double(), b.double())
+    own = (xr.double() - x64).abs().amax(dim=1, keepdim=True)
+    rtol, atol = (2e-3, 6e-3) if dtype == "float32" else (
+        1e-10, 1e-10 * float(xr.abs().max()))
+    ill = (d.abs().amin(dim=1) < PIVOT_FLOOR)[:, None]
+    own = own * ill if dtype == "float32" else torch.zeros_like(own)
+    excess = (x - xr).abs().double() - (atol + rtol * xr.abs().double()
+                                        + 2 * own)
+    assert float(excess.max()) <= 0, float(excess.max())
+    c = float(_solve_backward_error(L, d, b, x).max())
+    assert c <= RESIDUAL_C, c
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("B,n", SHAPES)
 def test_kernels_match_plain(card, dtype, B, n):
     """Identical pivots (same arithmetic, no FMA contraction) and solves
-    within the reduction-order tolerance: f32 rtol 2e-3 / atol 6e-3 as
-    test_pallas_ldlt.py:54-56, f64 1e-10."""
+    within the summation-order tolerance of ``_assert_solve_close``."""
     rng = np.random.default_rng(42)
     dt = getattr(torch, dtype)
     A = torch.as_tensor(_rand_sym(rng, B, n), dtype=dt, device=card)
@@ -52,9 +91,60 @@ def test_kernels_match_plain(card, dtype, B, n):
     assert sl.LAUNCHES["solve"] == n0["solve"] + 1
     assert torch.equal(d < 0, dr < 0)
     assert torch.equal(d, dr) and torch.equal(L, Lr)
-    tol = dict(rtol=2e-3, atol=6e-3) if dtype == "float32" else dict(
-        rtol=1e-10, atol=1e-10 * float(xr.abs().max()))
-    torch.testing.assert_close(x, xr, **tol)
+    _assert_solve_close(Lr, dr, b, x, xr, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 32, 33, 64, 69, 95, 97, 100,
+                               127, 128])
+def test_solve_kernel_sizes_scale_repeatable(card, n, dtype, scaled):
+    """Every lane layout of the solve kernel (half-warps at n <= 16; 1 to
+    4 entries per lane above), a batch that fills no CTA evenly (at the odd
+    sizes from 69 most CTAs' factors start off a 16-byte boundary), with
+    and without the row scale: against the plain version, bitwise equal over
+    20 calls, and with ``scale`` bitwise what the kernel gives when both
+    products are taken outside."""
+    rng = np.random.default_rng(n)
+    dt = getattr(torch, dtype)
+    B = 1003 if n <= 36 else 203
+    A = torch.as_tensor(_rand_sym(rng, B, n), dtype=dt, device=card)
+    b = torch.as_tensor(rng.standard_normal((B, n)), dtype=dt, device=card)
+    sc = torch.as_tensor(rng.uniform(0.25, 4.0, (B, n)), dtype=dt,
+                         device=card) if scaled else None
+    L, d = sl.ldlt_factor_small(A)
+    n0 = sl.LAUNCHES["solve"]
+    xs = [sl.ldlt_solve_small(L, d, b, scale=sc) for _ in range(21)]
+    assert sl.LAUNCHES["solve"] == n0 + 21
+    xr = sl.ldlt_solve_small_ref(L, d, b, sc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(xs[0], x) for x in xs[1:])
+    if scaled:
+        outside = sc * sl.ldlt_solve_small(L, d, sc * b)
+        assert torch.equal(xs[0], outside)
+        # the same system with the scale folded into the operands
+        _assert_solve_close(L, d, sc * b, xs[0] / sc, xr / sc, dtype)
+    else:
+        _assert_solve_close(L, d, b, xs[0], xr, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_solve_kernel_unaligned_factors(card, dtype):
+    """Factors that start off a 16-byte boundary (a slice of a batch at
+    n = 5) are staged from a scalar head, then 16-byte words: the same bits
+    as the aligned copy."""
+    rng = np.random.default_rng(5)
+    dt = getattr(torch, dtype)
+    A = torch.as_tensor(_rand_sym(rng, 77, 5), dtype=dt, device=card)
+    b = torch.as_tensor(rng.standard_normal((77, 5)), dtype=dt, device=card)
+    L, d = sl.ldlt_factor_small(A)
+    assert L[1:].data_ptr() % 16 and L[1:].is_contiguous()
+    x = sl.ldlt_solve_small(L[1:], d[1:], b[1:])
+    assert torch.equal(x, sl.ldlt_solve_small(L[1:].clone(), d[1:].clone(),
+                                              b[1:].clone()))
+    assert torch.equal(x, sl.ldlt_solve_small(L, d, b)[1:])
 
 
 @pytest.mark.cuda
@@ -166,10 +256,81 @@ def test_panel_sweep_kernel_one_launch(card, npad, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("npad,w", [(128, 128), (512, 256), (1536, 512),
+                                    (2048, 1024), (5120, 1024),
+                                    (4096, 4096), (5120, 128)])
+def test_block_sweep_kernel_one_launch(card, npad, w, dtype):
+    """The one-launch superblock sweep on a random unit-lower factor, from
+    one superblock to 40 and from one 128-tile per superblock to 32:
+    within 1e-5 (f32) or 1e-10 (f64) relative of the plain sweep, bitwise
+    equal over 20 repeated calls, one counted launch per call."""
+    rng = np.random.default_rng(npad + w)
+    Lp = (np.tril(rng.standard_normal((npad, npad)), -1) / np.sqrt(npad)
+          + np.eye(npad))
+    invb = np.stack([np.linalg.inv(Lp[k:k + w, k:k + w])
+                     for k in range(0, npad, w)])
+    dt = getattr(torch, dtype)
+    Lp, invb, z = (torch.as_tensor(a, dtype=dt, device=card) for a in (
+        Lp, invb, rng.standard_normal(npad)))
+    n0 = ll.LAUNCHES["bwd_sweep_blocks"]
+    xs = [ll.bwd_sweep_blocks(Lp, z, invb) for _ in range(20)]
+    xr = ll.bwd_sweep_ref(Lp, z, invb)
+    torch.cuda.synchronize()
+    assert ll.LAUNCHES["bwd_sweep_blocks"] == n0 + 20
+    err = float(torch.linalg.vector_norm(xs[0] - xr)
+                / torch.linalg.vector_norm(xr))
+    assert err <= (1e-5 if dtype == "float32" else 1e-10), err
+    assert all(torch.equal(xs[0], x) for x in xs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 1024])
+def test_block_sweep_kernel_keeps_non_finite(card, w):
+    """A non-finite entry of z reaches x (through the unit diagonal of the
+    inverse, whatever tiles above the diagonal are skipped): the solver's
+    NaN guard depends on it."""
+    npad = 2 * w
+    rng = np.random.default_rng(w)
+    Lp = (np.tril(rng.standard_normal((npad, npad)), -1) / np.sqrt(npad)
+          + np.eye(npad))
+    invb = np.stack([np.linalg.inv(Lp[k:k + w, k:k + w])
+                     for k in range(0, npad, w)])
+    Lp, invb, z = (torch.as_tensor(a, dtype=torch.float32, device=card)
+                   for a in (Lp, invb, rng.standard_normal(npad)))
+    for at in (0, w - 1, w, npad - 1):
+        for bad in (float("nan"), float("inf")):
+            zb = z.clone()
+            zb[at] = bad
+            x = ll.bwd_sweep_blocks(Lp, zb, invb)
+            assert not bool(torch.isfinite(x[at])), (at, bad)
+            assert not bool(torch.isfinite(x).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_block_sweep_rejects_width_off_128(card, dtype):
+    """The kernel works in 128 x 128 tiles: on the card a superblock width
+    that is no multiple of 128 raises, and never takes the plain version."""
+    npad, w = 600, 200
+    dt = getattr(torch, dtype)
+    Lp = torch.eye(npad, dtype=dt, device=card)
+    invb = torch.eye(w, dtype=dt, device=card).repeat(npad // w, 1, 1)
+    n0 = dict(ll.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ll.bwd_sweep_blocks(Lp, torch.ones(npad, dtype=dt, device=card), invb)
+    assert ll.LAUNCHES == n0
+
+
+@pytest.mark.cuda
 def test_large_kernels_reject_bad_input_on_the_card(card):
     with pytest.raises(ValueError):
         ll.panel_ldlt(torch.eye(129, device=card))
     with pytest.raises(ValueError):
         ll.bwd_sweep_panels(torch.eye(256, device=card),
                             torch.ones(256, device="cpu"),
+                            torch.eye(128, device=card).repeat(2, 1, 1))
+    off = torch.zeros(256 * 256 + 1, device=card)[1:].view(256, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        ll.bwd_sweep_blocks(off, torch.ones(256, device=card),
                             torch.eye(128, device=card).repeat(2, 1, 1))

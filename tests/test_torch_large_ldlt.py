@@ -221,6 +221,75 @@ def test_sweep_wrapper_checks():
                             torch.eye(128).repeat(2, 1, 1))
 
 
+def _unit_lower_blocks(rng, npad, w):
+    """A random unit-lower Lp (npad, npad) and the inverses of its w-wide
+    diagonal superblocks, float64 numpy arrays."""
+    Lp = (np.tril(rng.standard_normal((npad, npad)), -1) / np.sqrt(npad)
+          + np.eye(npad))
+    invb = np.stack([np.linalg.inv(Lp[k:k + w, k:k + w])
+                     for k in range(0, npad, w)])
+    return Lp, invb
+
+
+@pytest.mark.parametrize("npad,w", [(512, 256), (768, 256), (512, 512)])
+def test_block_solves_with_zero_pivots_match_jax(rng, npad, w):
+    """Pivots that are exactly zero divide by 1 on the way into the
+    superblock sweep: the finishing half and the full solve against the
+    JAX package's on the same factors, float64."""
+    Lp, invb = _unit_lower_blocks(rng, npad, w)
+    d = rng.standard_normal(npad)
+    d[[1, npad // 3, npad - 5]] = 0.0
+    y = rng.standard_normal(npad - 40)
+    got = TL.ldlt_solve_blocks_bwd(_T(Lp), _T(d), _T(invb), _T(y)).numpy()
+    want = JL.ldlt_solve_blocks_bwd(jnp.asarray(Lp), jnp.asarray(d),
+                                    jnp.asarray(invb), jnp.asarray(y))
+    assert got.shape == want.shape and _rel(got, want) < 1e-10
+    z = np.pad(y, (0, 40)) / np.where(d != 0, d, 1.0)
+    assert _rel(ll.bwd_sweep_ref(_T(Lp), _T(z), _T(invb)).numpy()[:y.size],
+                want) < 1e-10
+    got = TL.ldlt_solve_blocks(_T(Lp), _T(d), _T(invb), _T(y)).numpy()
+    want = JL.ldlt_solve_blocks(jnp.asarray(Lp), jnp.asarray(d),
+                                jnp.asarray(invb), jnp.asarray(y), block=w)
+    assert _rel(got, want) < 1e-10
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("at", [0, 255, 256, 600, 767])
+def test_bwd_sweep_ref_keeps_non_finite(rng, at, bad):
+    """A non-finite entry of z leaves x non-finite at that entry and
+    wherever the JAX sweep is (the solver's NaN guard reads x)."""
+    Lp, invb = _unit_lower_blocks(rng, 768, 256)
+    z = rng.standard_normal(768)
+    z[at] = bad
+    x = ll.bwd_sweep_blocks(_T(Lp), _T(z), _T(invb)).numpy()
+    want = np.asarray(JL._bwd_sweep_xla(jnp.asarray(Lp), jnp.asarray(z),
+                                        jnp.asarray(invb)))
+    assert not np.isfinite(x[at])
+    np.testing.assert_array_equal(np.isfinite(x), np.isfinite(want))
+
+
+@pytest.mark.parametrize("npad,w", [(128, 128), (2048, 1024), (5120, 1024),
+                                    (5120, 128), (4096, 4096)])
+def test_blocks_sweep_scratch(npad, w):
+    """The one-launch superblock sweep's scratch: two zeroed int32
+    counters per 128-group of x, and one 128-vector of the working type
+    per tile of work (g^2 per superblock of x partials, (n - 1) g^2 of slab
+    partials)."""
+    n, g = npad // w, w // 128
+    for dtype in (torch.float32, torch.float64):
+        counts, partials = ll.blocks_sweep_scratch(npad, w, dtype, "cpu")
+        assert counts.dtype == torch.int32 and not bool(counts.any())
+        assert tuple(counts.shape) == (2 * n * g,)
+        assert partials.dtype == dtype
+        assert tuple(partials.shape) == (n * g * g * 128 * n,)
+
+
+def test_blocks_sweep_scratch_needs_whole_tiles():
+    for npad, w in ((600, 200), (512, 0), (1024, 384), (0, 128)):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            ll.blocks_sweep_scratch(npad, w, torch.float32, "cpu")
+
+
 # ----------------------------------------------------------------------
 # the factorizations, float64
 @pytest.mark.parametrize("K", SIZES)

@@ -228,8 +228,11 @@ def test_residual_gate_matches_jax_cpu_path(dtype, piv, want_solver,
     Hs, gs, nneg, A, g = _adversarial_batch(dtype, piv)
     monkeypatch.setattr(TL, "ldlt_factor_small",
                         _jax_cpu_small(pk.ldlt_factor_small))
-    monkeypatch.setattr(TL, "ldlt_solve_small",
-                        _jax_cpu_small(pk.ldlt_solve_small))
+    jax_solve = _jax_cpu_small(pk.ldlt_solve_small)
+    # the port's solve takes the Ruiz scale; the JAX one gets it outside
+    monkeypatch.setattr(
+        TL, "ldlt_solve_small",
+        lambda L, d, b, scale: scale * jax_solve(L, d, scale * b))
     got, want = _run_both(Hs, gs, np.zeros(2), np.full(2, 0.1), 64 - nneg,
                           nneg, dtype, want_solver, max_retries=20)
     assert int(want[0][2]) > 0, "residual gate did not trigger in JAX"

@@ -17,8 +17,10 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from pyipm_tpu.config import IPMConfig as JCfg  # noqa: E402
 from pyipm_tpu.ops import pallas_ldlt as pk  # noqa: E402
 from pyipm_tpu.ops.linalg import ldlt_solve_inv, ldlt_unblocked  # noqa: E402
+from pyipm_tpu_torch.ops import linalg as TL  # noqa: E402
 from pyipm_tpu_torch.ops import small_ldlt as sl  # noqa: E402
 
 
@@ -75,6 +77,94 @@ def test_f64_matches_plain_jax(rng, B, n):
     np.testing.assert_allclose(d, dr, rtol=1e-10, atol=0)
     np.testing.assert_allclose(L, Lr, rtol=1e-10, atol=1e-10 * np.abs(Lr).max())
     np.testing.assert_allclose(x, xr, rtol=1e-10, atol=1e-10 * np.abs(xr).max())
+
+
+@pytest.mark.parametrize("B,n", [(8, 16), (8, 36), (4, 48), (3, 128)])
+def test_scaled_solve_matches_jax(rng, B, n):
+    """``ldlt_solve_small(L, d, b, scale=dsc)`` against the JAX package's
+    ``dsc * ldlt_solve_small(L, d, dsc * rhs)`` (linalg.py:949-950, vmapped
+    on the CPU as the solver runs it), float64, <= 1e-10 relative; and
+    bitwise the plain solve with both products taken outside."""
+    A = _rand_sym(rng, B, n)
+    A[::2] -= (n / 2) * np.eye(n)
+    b = rng.standard_normal((B, n))
+    dsc = rng.uniform(0.25, 4.0, (B, n))
+    Lr, dr = jax.vmap(ldlt_unblocked)(jnp.asarray(A))
+    want = np.asarray(jax.vmap(
+        lambda L_, d_, s_, r_: s_ * pk.ldlt_solve_small(L_, d_, s_ * r_))(
+        Lr, dr, jnp.asarray(dsc), jnp.asarray(b)))
+    L, d = torch.tensor(np.asarray(Lr)), torch.tensor(np.asarray(dr))
+    bt, st = torch.as_tensor(b), torch.as_tensor(dsc)
+    x = sl.ldlt_solve_small(L, d, bt, scale=st)
+    np.testing.assert_allclose(x.numpy(), want, rtol=1e-10,
+                               atol=1e-10 * np.abs(want).max())
+    assert torch.equal(x, st * sl.ldlt_solve_small(L, d, st * bt))
+    assert torch.equal(x, sl.ldlt_solve_small_ref(L, d, bt, st))
+
+
+@pytest.mark.parametrize("want_solver", [False, True])
+@pytest.mark.parametrize("K,M", [(16, 0), (36, 4), (128, 16)])
+def test_reg_solve_kkt_unchanged_by_fused_scale(rng, K, M, want_solver,
+                                                monkeypatch):
+    """``reg_solve_kkt`` at K <= 128 hands its Ruiz scale to the solve; in
+    float64 it gives the same bits as with both products taken outside,
+    as it computed them before the solve took ``scale``."""
+    B, D = 5, K - M
+    Q = rng.standard_normal((B, D, D))
+    H = np.zeros((B, K, K))
+    H[:, :D, :D] = Q @ np.swapaxes(Q, 1, 2) / D + 0.1 * np.eye(D)
+    H[::2, 0, 0] -= 3.0                       # wrong inertia: escalates
+    Je = rng.standard_normal((B, D, M))
+    H[:, :D, D:] = Je
+    H[:, D:, :D] = np.swapaxes(Je, 1, 2)
+    g = rng.standard_normal((B, K))
+    cfg = JCfg(float_dtype="float64")
+    kw = dict(nvar=D, neq=M, nineq=0, eps=cfg.eps, reg_coef=cfg.reg_coef,
+              eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0, max_retries=20,
+              want_solver=want_solver)
+    args = (torch.as_tensor(H), torch.as_tensor(g),
+            torch.zeros(B, dtype=torch.float64),
+            torch.full((B,), 0.1, dtype=torch.float64))
+    rhs2 = torch.as_tensor(np.cos(np.arange(B * K, dtype=np.float64))
+                           .reshape(B, K))
+
+    def run():
+        out = TL.reg_solve_kkt(*args, **kw)
+        if want_solver:
+            return out[:3] + (out[3](rhs2),) + tuple(out[4])
+        return out
+
+    fused = run()
+
+    def outside(L, d, b, scale=None):
+        if scale is None:
+            return sl.ldlt_solve_small(L, d, b)
+        return scale * sl.ldlt_solve_small(L, d, (scale * b).contiguous())
+
+    monkeypatch.setattr(TL, "ldlt_solve_small", outside)
+    for a, b in zip(fused, run()):
+        assert torch.equal(a, b)
+    assert float(fused[1][0]) > 0.0            # the shift was applied
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "device"])
+def test_solve_wrapper_checks_scale(bad):
+    L = torch.eye(4, dtype=torch.float64).repeat(2, 1, 1)
+    d = torch.ones(2, 4, dtype=torch.float64)
+    b = torch.ones(2, 4, dtype=torch.float64)
+    if bad == "dtype":
+        scale, err = torch.ones(2, 4, dtype=torch.float32), TypeError
+    elif bad == "shape":
+        scale, err = torch.ones(2, dtype=torch.float64), ValueError
+    elif bad == "contiguous":
+        scale, err = torch.ones(4, 2, dtype=torch.float64).T, ValueError
+    else:
+        scale, err = torch.ones(2, 4, dtype=torch.float64,
+                                device="meta"), ValueError
+    with pytest.raises(err):
+        sl.ldlt_solve_small(L, d, b, scale=scale)
+    x = sl.ldlt_solve_small(L, d, b, scale=2 * torch.ones_like(b))
+    assert torch.equal(x, 4 * b)
 
 
 def test_zero_pivot_guard_matches_jax():
