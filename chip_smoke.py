@@ -7,9 +7,13 @@ Phases, each raising on failure:
   2. build: compile every hand-written kernel source of
      pyipm_tpu_torch/csrc, one nvcc per source, all at once;
   3. kernels 1-2 (batched small LDL^T factor and solve) against their
-     plain PyTorch versions on the card, f32 and f64; the solve also at
-     every lane layout (n = 1 to 128), with and without its row scale,
-     bitwise repeatable, and against a backward-error bound;
+     plain PyTorch versions on the card, f32 and f64; the factor bitwise
+     at every size bucket and its edges (n = 1 to 128), half the
+     instances indefinite, repeatable over 20 calls, and on an unaligned
+     batch slice; the solve at every lane layout (n = 1 to 128), with and
+     without its row scale, bitwise repeatable, and against a
+     backward-error bound; both timed at (10000, 16) and (10000, 36), the
+     factor also at (512, 128);
   4. slice A: the 10,000-QP float32 fleet through ``solve_batch`` on
      cuda:0, launch counters reset just before the timed solve;
   5. the same first 64 instances on CPU tensors (the plain path) against
@@ -27,9 +31,9 @@ Phases, each raising on failure:
   9. a D = 1000, M = 64 dense NLP on the card and on CPU tensors.
 Each kernel is timed twice: ``ms``, CUDA events around one wrapper call
 (what the path sees, host enqueue included), and ``device_ms``, the
-kernel's own device time per call from ``torch.profiler`` (or, where the
-profiler shows none, CUDA events around 50 back-to-back calls; the record
-says which).  The line before the last is the kernels' JSON record, the
+kernel's own device time per launch from ``torch.profiler``, with the
+launches per call it saw (or, where the profiler shows none, CUDA events
+around 50 back-to-back calls; the record says which).  The line before the last is the kernels' JSON record, the
 one before it the card's name and power limit; the last line is the JSON
 result.  Needs one CUDA card and the repository checkout.
 """
@@ -53,6 +57,14 @@ KERNEL_SHAPES = ((10_000, 16), (10_000, 36), (129, 36), (1, 16), (512, 128))
 # 16-byte boundary
 SOLVE_SIZES = (1, 15, 17, 31, 32, 33, 64, 69, 95, 97, 100, 127, 128)
 SOLVE_B = 1003
+# the factor kernel's size buckets (half-warps to 16, a warp to 32, 48 and
+# 64, a CTA per instance above) and their edges; B = 1003 to n = 36, 203
+# above, so no CTA is filled evenly
+FACTOR_SIZES = (1, 2, 15, 16, 17, 31, 32, 33, 36, 48, 49, 63, 64, 65, 69,
+                95, 97, 127, 128)
+FACTOR_REPEATS = 20
+# a library call slower than this is timed again at LIBRARY_SMALL_B
+LIBRARY_SLOW_S, LIBRARY_SMALL_B = 30.0, 1000
 # |L D L^T x - b| <= RESIDUAL_C n eps (|L||D||L^T||x| + |b|), per entry
 RESIDUAL_C = 2.0
 # an f32 instance with a pivot below this is ill-conditioned: only there is
@@ -60,6 +72,8 @@ RESIDUAL_C = 2.0
 PIVOT_FLOOR = 1e-2
 PANEL_SIZES = (1, 2, 31, 33, 64, 100, 127, 128)
 TIMED_SHAPES = ((10_000, 16), (10_000, 36))
+FACTOR_ONLY_SHAPE = (512, 128)
+REPS = 50                      # CUDA-event timings of a kernel call
 # the dense NLP instance of phase 8, also solved by scripts/*dense_nlp*.py
 DENSE_D, DENSE_M, DENSE_H = 4096, 256, 256
 DENSE_SEED, DENSE_X0 = 0, 1e-3
@@ -102,17 +116,22 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
-def device_ms(fn, kernels, calls=50):
-    """(ms, method, launches): device time per call of ``fn`` spent in the
-    CUDA kernels whose names contain one of ``kernels`` and their launches
-    per call, from ``torch.profiler`` over ``calls`` back-to-back calls, or,
-    if it shows no device time, from CUDA events around them, divided by
-    ``calls`` (launches None)."""
+def device_ms(fn, kernels, calls=REPS, traces=8):
+    """(ms, method, launches): device time per launch of the CUDA kernels
+    whose names contain one of ``kernels``, and their launches per call as
+    the profiler saw them, from ``torch.profiler`` over ``calls``
+    back-to-back calls of ``fn`` (each launches one such kernel).  The
+    profiler now and then drops a kernel's events: a trace that shows fewer
+    than ``calls`` launches is taken again, up to ``traces`` in all, and
+    failing a whole one the fullest is used, its time divided by the
+    launches it shows.  If none shows any, CUDA events around ``calls``
+    calls, divided by ``calls`` (launches None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _attempt in range(2):   # a trace now and then lacks a kernel's events
+    seen, us = 0, 0.0
+    for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -121,10 +140,13 @@ def device_ms(fn, kernels, calls=50):
         mine = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and any(k in e.key for k in kernels)]
-        us = sum(e.self_device_time_total for e in mine)
-        if us > 0:
-            return (us / calls / 1e3, "torch.profiler",
-                    sum(e.count for e in mine) / calls)
+        seen, us = max((seen, us),
+                       (sum(e.count for e in mine),
+                        sum(e.self_device_time_total for e in mine)))
+        if seen >= calls:
+            break
+    if seen:
+        return us / seen / 1e3, "torch.profiler", seen / calls
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -144,10 +166,66 @@ def bound(nbytes, flops, peak_flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def factor_bound(Bn, n):
+    """bound() of B f32 LDL^T factors of n x n matrices: the lower triangle
+    of A read (all the function depends on), the full L (unit diagonal and
+    zeros above it included) and d written; 2n^3/3 operations each."""
+    words = n * (n + 1) // 2 + n * n + n
+    return bound(Bn * words * 4, Bn * 2 * n ** 3 / 3, F32_FLOPS)
+
+
+def solve_bound(Bn, n):
+    """bound() of B f32 solves L D L^T x = b: the strict lower triangle of
+    the unit-lower L, d and b read, x written; 2n^2 operations each."""
+    words = n * (n - 1) // 2 + 3 * n
+    return bound(Bn * words * 4, Bn * 2 * n * n, F32_FLOPS)
+
+
+def factor_timings(sl, A, plain_reps=10):
+    """The small factor on A (B, n, n), f32: ms per call (CUDA events,
+    median), the kernel's device ms per launch with the launches per call
+    the profiler saw, the wrapper at B = 1 (its enqueue floor), the plain
+    version's ms, and the bound."""
+    return dict(
+        factor=cuda_ms(lambda: sl.ldlt_factor_small(A), REPS),
+        factor_device=device_ms(lambda: sl.ldlt_factor_small(A),
+                                ("ldlt_factor_kernel",)),
+        factor_floor=cuda_ms(lambda: sl.ldlt_factor_small(A[:1]), REPS),
+        factor_plain=cuda_ms(lambda: sl.ldlt_factor_small_ref(A), plain_reps),
+        factor_bound=factor_bound(A.shape[0], A.shape[-1]))
+
+
 def reset(*counters):
     for counts in counters:
         for k in counts:
             counts[k] = 0
+
+
+def same_bits(a, b):
+    """Bitwise equal, NaN payloads aside: NaN at the same entries, every
+    other entry with the same bits."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return (a.dtype == b.dtype and torch.equal(na, nb)
+            and torch.equal(a.view(it)[~na], b.view(it)[~nb]))
+
+
+def library_ms(fn, what):
+    """(ms, warm-up s): one call timed with CUDA events after a warm-up
+    call; ms is None if the call raises or the warm-up took more than
+    LIBRARY_SLOW_S (then not timed again)."""
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        if warm > LIBRARY_SLOW_S:
+            return None, warm
+        return cuda_ms(fn, 1), warm
+    except RuntimeError as exc:
+        print(f"  {what} unavailable: {exc}", flush=True)
+        return None, None
 
 
 # ----------------------------------------------------------------------
@@ -210,8 +288,9 @@ def check_small_kernels(sl, device):
             x = sl.ldlt_solve_small(Lr, dr, b)
             xr = sl.ldlt_solve_small_ref(Lr, dr, b)
             torch.cuda.synchronize()
-            if not torch.equal(d < 0, dr < 0):
-                raise AssertionError(f"pivot signs differ at {(Bn, n)} {dtype}")
+            if not (same_bits(L, Lr) and same_bits(d, dr)):
+                raise AssertionError(f"factor differs from its plain version "
+                                     f"at {(Bn, n)} {dtype}")
             # reconstruction, against the backward-error bound of unpivoted
             # LDL^T, which scales with |L||D||L^T| (= max|A| when no pivot
             # is small; a few of 10,000 random instances have one)
@@ -225,10 +304,6 @@ def check_small_kernels(sl, device):
             if float(rec_err) > rec_tol:
                 raise AssertionError(f"reconstruction error {float(rec_err)} "
                                      f"> {rec_tol} at {(Bn, n)} {dtype}")
-            if dtype == torch.float32:
-                torch.testing.assert_close(d, dr, rtol=5e-3, atol=1e-3)
-            else:
-                torch.testing.assert_close(d, dr, rtol=1e-10, atol=1e-10)
             c, wide = check_solve(sl, Lr, dr, b, x, xr,
                                   f"{(Bn, n)} {dtype}")
             if dtype == torch.float32 and (Bn, n) in TIMED_SHAPES:
@@ -278,65 +353,104 @@ def check_small_kernels(sl, device):
               f"(c = {RESIDUAL_C}), {wide} instances held to the widened "
               f"tolerance", flush=True)
 
+    # the factor, bitwise, at every size bucket and its edges
+    for dtype in (torch.float32, torch.float64):
+        for n in FACTOR_SIZES:
+            Bn = SOLVE_B if n <= 36 else 203
+            A = rand_sym(gen, Bn, n, dtype, device)
+            A[::2] -= (n / 2) * torch.eye(n, dtype=dtype, device=device)
+            outs = [sl.ldlt_factor_small(A) for _ in range(FACTOR_REPEATS + 1)]
+            Lr, dr = sl.ldlt_factor_small_ref(A)
+            # a batch slice starts off a 16-byte boundary (odd n)
+            Ls, ds = sl.ldlt_factor_small(A[1:])
+            torch.cuda.synchronize()
+            L, d = outs[0]
+            what = f"ldlt_factor_small n={n} {dtype}"
+            if not (same_bits(L, Lr) and same_bits(d, dr)):
+                raise AssertionError(f"{what}: differs from its plain version"
+                                     f", max|dd|={float((d - dr).abs().max())}")
+            if not all(same_bits(L, L2) and same_bits(d, d2)
+                       for L2, d2 in outs[1:]):
+                raise AssertionError(f"{what}: not bitwise repeatable")
+            if not (same_bits(Ls, Lr[1:]) and same_bits(ds, dr[1:])):
+                raise AssertionError(f"{what}: the slice A[1:] differs")
+        print(f"  ok ldlt_factor_small {str(dtype):14s} n={FACTOR_SIZES}, "
+              f"B={SOLVE_B} (203 above 36), half indefinite: bitwise equal to "
+              f"the plain version, over {FACTOR_REPEATS} more calls, and on "
+              f"the slice A[1:]", flush=True)
+
     times = {}
     for Bn, n in TIMED_SHAPES:
         A = rand_sym(gen, Bn, n, torch.float32, device)
         b = torch.randn(Bn, n, generator=gen).to(device)
         L, d = sl.ldlt_factor_small(A)
         # library yardstick of the solve: LAPACK-style LDL^T solve with
-        # identity pivots (timed here only, never called by the port)
+        # identity pivots (timed here only, never called by the port); it
+        # takes seconds per call, so one rep after a warm-up, and at
+        # LIBRARY_SMALL_B instances if the warm-up exceeds LIBRARY_SLOW_S
         LD = torch.tril(L, -1) + torch.diag_embed(d)
         piv = torch.arange(1, n + 1, dtype=torch.int32,
                            device=device).expand(Bn, n).contiguous()
-        # (it takes seconds per call at these shapes: few reps, n = 16 only)
-        lib_solve = None
-        if n == 16:
-            try:
-                lib_solve = cuda_ms(lambda: torch.linalg.ldl_solve(
-                    LD, piv, b[..., None]), 2)
-            except RuntimeError as exc:
-                print(f"  torch.linalg.ldl_solve unavailable: {exc}",
-                      flush=True)
-        f4 = 4
+        lib_b = Bn
+        lib_solve, warm = library_ms(lambda: torch.linalg.ldl_solve(
+            LD, piv, b[..., None]), "torch.linalg.ldl_solve")
+        if lib_solve is None and warm is not None:
+            lib_b = LIBRARY_SMALL_B
+            lib_solve, warm = library_ms(lambda: torch.linalg.ldl_solve(
+                LD[:lib_b], piv[:lib_b], b[:lib_b, :, None]),
+                "torch.linalg.ldl_solve")
+        lib_note = (f"warm-up {warm:.1f} s" if warm is not None
+                    else "unavailable")
         sc = 0.25 + torch.rand(Bn, n, generator=gen).to(device)
         solve_k = ("ldlt_solve_kernel",)
         times[n] = dict(
-            factor=cuda_ms(lambda: sl.ldlt_factor_small(A), 50),
-            factor_device=device_ms(lambda: sl.ldlt_factor_small(A),
-                                    ("ldlt_factor_kernel",)),
+            factor_timings(sl, A),
             solve_device=device_ms(lambda: sl.ldlt_solve_small(L, d, b),
                                    solve_k),
-            factor_plain=cuda_ms(lambda: sl.ldlt_factor_small_ref(A), 10),
-            solve=cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), 50),
+            solve=cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), REPS),
             # the wrapper's enqueue floor: the same call at B = 1
             solve_floor=cuda_ms(lambda: sl.ldlt_solve_small(
-                L[:1], d[:1], b[:1]), 50),
+                L[:1], d[:1], b[:1]), REPS),
             # scaled: one launch, against the products taken outside
             solve_scaled=cuda_ms(lambda: sl.ldlt_solve_small(
-                L, d, b, scale=sc), 50),
+                L, d, b, scale=sc), REPS),
             solve_scaled_device=device_ms(lambda: sl.ldlt_solve_small(
                 L, d, b, scale=sc), solve_k),
             solve_scaled_outside=cuda_ms(lambda: sc * sl.ldlt_solve_small(
-                L, d, (sc * b).contiguous()), 50),
+                L, d, (sc * b).contiguous()), REPS),
             solve_plain=cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 10),
             solve_library=lib_solve,
-            factor_bound=bound(Bn * (2 * n * n + n) * f4,
-                               Bn * 2 * n ** 3 / 3, F32_FLOPS),
-            solve_bound=bound(Bn * (n * n + 3 * n) * f4,
-                              Bn * 2 * n * n, F32_FLOPS))
+            solve_library_b=lib_b,
+            solve_bound=solve_bound(Bn, n))
         t = times[n]
         print(f"  f32 B={Bn} n={n}: factor {t['factor']:.4f} ms "
-              f"(device {t['factor_device'][0]:.4f} ms by "
-              f"{t['factor_device'][1]}, plain {t['factor_plain']:.4f} ms, "
+              f"(device {t['factor_device'][0]:.4f} ms per launch in "
+              f"{t['factor_device'][2]} launches per call by "
+              f"{t['factor_device'][1]}, the wrapper at B=1 "
+              f"{t['factor_floor']:.4f} ms, plain {t['factor_plain']:.4f} ms, "
               f"bound {t['factor_bound'][0]:.5f} ms), solve "
-              f"{t['solve']:.4f} ms (device {t['solve_device'][0]:.4f} ms, "
+              f"{t['solve']:.4f} ms (device {t['solve_device'][0]:.4f} ms in "
+              f"{t['solve_device'][2]} launches per call, "
               f"the wrapper at B=1 {t['solve_floor']:.4f} ms, "
-              f"plain {t['solve_plain']:.4f} ms, ldl_solve {lib_solve} ms, "
+              f"plain {t['solve_plain']:.4f} ms, ldl_solve {lib_solve} ms at "
+              f"B={lib_b} ({lib_note}), "
               f"bound {t['solve_bound'][0]:.5f} ms), scaled solve "
               f"{t['solve_scaled']:.4f} ms (device "
               f"{t['solve_scaled_device'][0]:.4f} ms; products outside "
               f"{t['solve_scaled_outside']:.4f} ms), CUDA events, median",
               flush=True)
+
+    # the factor alone at the CTA scheme's largest size
+    Bn, n = FACTOR_ONLY_SHAPE
+    A = rand_sym(gen, Bn, n, torch.float32, device)
+    times[n] = t = factor_timings(sl, A, plain_reps=3)
+    print(f"  f32 B={Bn} n={n}: factor {t['factor']:.4f} ms (device "
+          f"{t['factor_device'][0]:.4f} ms per launch in "
+          f"{t['factor_device'][2]} launches per call by "
+          f"{t['factor_device'][1]}, the "
+          f"wrapper at B=1 {t['factor_floor']:.4f} ms, plain "
+          f"{t['factor_plain']:.4f} ms, bound {t['factor_bound'][0]:.5f} ms "
+          f"by {t['factor_bound'][1]}), CUDA events, median", flush=True)
     return err, times
 
 
@@ -474,8 +588,7 @@ def check_large_kernels(ll, lin, device):
                             ("panel_ldlt_kernel",)),
         plain_ms=cuda_ms(lambda: ll.panel_ldlt_ref(panel), 10),
         library_ms=None,
-        bound=bound(2 * 128 * 128 * 4 + 128 * 4, 2 * 128 ** 3 / 3,
-                    F32_FLOPS),
+        bound=factor_bound(1, 128),
         shape=[128, 128])
     for name, fn, Lf, inv, kernels in (
             ("bwd_sweep_panels", ll.bwd_sweep_panels, Lp, invp,
@@ -483,14 +596,10 @@ def check_large_kernels(ll, lin, device):
             ("bwd_sweep_blocks", ll.bwd_sweep_blocks, Lb, invb,
              ("sweep_blocks_kernel",))):
         Lt = Lf.mT
-        # one launch per sweep, by the profiler's count (it may drop a few
-        # of the 50 events, or now and then all of them: profile again, and
-        # fail rather than pass without the count)
-        for _attempt in range(4):
-            dev = device_ms(lambda: fn(Lf, z, inv), kernels)
-            if dev[2] is not None:
-                break
-        else:
+        # one launch per sweep, by the profiler's count: fail rather than
+        # pass without it
+        dev = device_ms(lambda: fn(Lf, z, inv), kernels)
+        if dev[2] is None:
             raise AssertionError(f"{name}: the profiler showed none of its "
                                  f"launches in 8 traces")
         if not 0.5 < dev[2] < 1.5:
@@ -498,7 +607,7 @@ def check_large_kernels(ll, lin, device):
                                  f"in the profile, expected 1")
         rec[name] = dict(
             max_abs_err=sweep_err[name],
-            ms=cuda_ms(lambda: fn(Lf, z, inv), 50),
+            ms=cuda_ms(lambda: fn(Lf, z, inv), REPS),
             device_ms=dev,
             plain_ms=cuda_ms(lambda: ll.bwd_sweep_ref(Lf, z, inv), 20),
             library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
@@ -508,7 +617,7 @@ def check_large_kernels(ll, lin, device):
     for name, r in rec.items():
         print(f"  f32 {name} at {r['shape']}: {r['ms']:.4f} ms per call "
               f"(CUDA events, median), device {r['device_ms'][0]:.4f} ms "
-              f"per call in {r['device_ms'][2]} launches (by "
+              f"per launch in {r['device_ms'][2]} launches per call (by "
               f"{r['device_ms'][1]}), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
               f"{r['bound'][0]:.5f} ms by {r['bound'][1]}", flush=True)
@@ -776,14 +885,24 @@ def main() -> int:
             path_launches["condensed"]["bwd_sweep_blocks"],
             big["bwd_sweep_blocks"], big["bwd_sweep_blocks"]["shape"]),
     ], "launches_by_path": {"fleet": launches, **path_launches},
+        "ldlt_factor_small_timings": {
+            str(n): {"ms": t["factor"], "device_ms": t["factor_device"][0],
+                     "kernel_launches_per_call": t["factor_device"][2],
+                     "wrapper_floor_ms": t["factor_floor"],
+                     "plain_ms": t["factor_plain"],
+                     "bound_ms": t["factor_bound"][0]}
+            for n, t in times.items()},
         "ldlt_solve_small_timings": {
             str(n): {"ms": t["solve"], "device_ms": t["solve_device"][0],
+                     "kernel_launches_per_call": t["solve_device"][2],
                      "wrapper_floor_ms": t["solve_floor"],
                      "scaled_ms": t["solve_scaled"],
                      "scaled_device_ms": t["solve_scaled_device"][0],
                      "scaled_outside_ms": t["solve_scaled_outside"],
+                     "library_ms": t["solve_library"],
+                     "library_batch": t["solve_library_b"],
                      "bound_ms": t["solve_bound"][0]}
-            for n, t in times.items()},
+            for n, t in times.items() if "solve" in t},
         "fleet": fleet, "kkt_4352": kkt, "dense_nlp": dense}
     print(smi)
     print(json.dumps(record))

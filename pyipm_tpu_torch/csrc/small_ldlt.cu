@@ -11,37 +11,64 @@
 // (n, n, B) layout.
 //
 // What bounds them: at B = 10,000 and n = 36 the factorization reads A and
-// writes L, about 104 MB, and does about 0.16 GFLOP.  Neither the H100's
-// bandwidth nor its arithmetic is the limit: the bound is the n-step
-// dependency chain inside each instance (every column step needs the
-// previous step's trailing update).  The design answers that with
-// parallelism across instances: one 128-thread block per instance (a few
-// instances per block when n <= 16), 10,000 independent blocks over the
-// 132 SMs, each keeping its whole matrix in shared memory for the n steps.
+// writes L and d, about 104 MB, and does about 0.16 GFLOP; the solve moves
+// B (n^2 + 3n) values for 2 n^2 flops each instance (12.2 MB, 3.6 us at
+// B = 10,000, n = 16, f32).  So the bound is bytes, and what stands in the
+// way is the chain of dependent steps inside each instance: n column steps
+// of the factorization (each needs the previous step's trailing update),
+// 2n substitution steps of the solve.  Both answer it the same way: no
+// CTA-wide barrier and no global access inside the chain.
 //
-// The solve moves B (n^2 + 3n) values for 2 n^2 flops each instance, so its
-// bound is bytes (12.2 MB, 3.6 us at B = 10,000, n = 16, f32), and what
-// stands in the way is again the chain: two substitutions of n dependent
-// steps.  Its design: a CTA first stages the factors of all its instances
-// (contiguous in memory) into shared memory with 16-byte loads, every load
-// in flight before any chain starts; then a warp runs one instance (two at
-// n <= 16, in half-warps) COLUMN-oriented: lane i owns entry i of the
-// running vector (entries i, i + 32, .. above n = 32), and step j is one
-// shuffle that broadcasts entry j and one fused multiply-subtract in every
-// lane still to be updated, with L_ij read from the padded shared tile (a
-// column read in the forward pass, a row read in the backward pass, both
-// free of bank conflicts).  No reduction, no barrier, no global load inside
-// the chain.  An optional row scale is folded in: x = s * solve(s * b).
+// Staging (copy_run, shared by both kernels).  A CTA's instances are
+// consecutive, so their matrices are one contiguous run of global memory.
+// It is copied in one pass of 16-byte words, every load in flight before
+// any chain starts, into shared tiles of odd row stride ld = n | 1 (lanes
+// walking a column hit distinct banks); the run starts wherever the CTA's
+// first instance lies (a batch slice, or any CTA at odd n), so a scalar
+// head brings it to the next 16-byte boundary and a scalar tail ends it.
+// The factorization writes L (unit diagonal and zeros included) and d back
+// the same way.
 //
-// Numerics.  The factorization matches its plain PyTorch version
-// (pyipm_tpu_torch/ops/small_ldlt.py) column for column: the same
-// right-looking column order, the same zero-pivot guard (a zero pivot
-// divides by 1), and the trailing update rounded as (l_i * l_k) * d_j then
-// subtracted, with the _rn intrinsics so the compiler does not contract it
-// into an FMA.  The solve subtracts its products one by one in step order
-// (one FMA each) where the plain version sums a row and subtracts once, so
-// the two differ by roundoff; every order is fixed, so a call is bitwise
-// repeatable, and the two scale products are rounded on their own.
+// The factorization at n <= 64: one warp per instance (two, in half-warps,
+// at n <= 16).  Lane l owns rows l and l + 32 (above n = 32) of the lower
+// triangle in registers; the kernel is a template on the size bucket (16,
+// 32, 48, 64).  A row's registers are a window that slides one column a
+// step, so that every register index is a constant while the column loop
+// stays a loop (fully unrolled, the code grows with n^2, ~100 KB at 48, and
+// is fetched from L2 anew each step: ~1.3 us a step at n = 36 on an NVIDIA
+// H100 80GB HBM3 at 700 W).
+// Step j: the pivot's owner broadcasts d_j by shuffle, every lane scales
+// its own l_ij (and stores it to the tile), the scaled column goes through
+// a warp-private shared column (two of them, alternating, so one
+// __syncwarp per step orders both the write after the reads and the reads
+// after the write), read back in 16-byte broadcasts, and every lane updates
+// its own entries (i, c), j < c < n.  A warp does ~n^2/2 updates per
+// instance, the longest row each step.
+//
+// Above n = 64 (no path of the solver reaches it) the rows would not fit
+// in registers: the CTA scheme is kept there, one 128-thread CTA per
+// instance with the matrix in shared memory, thread i owning row i, and two
+// CTA barriers per column step (the scaled column, then the update).
+//
+// The solve: a warp runs one instance (two at n <= 16, in half-warps)
+// column-oriented: lane i owns entry i of the running vector (entries i,
+// i + 32, .. above n = 32), and step j is one shuffle that broadcasts entry
+// j and one fused multiply-subtract in every lane still to be updated, with
+// L_ij read from the staged tile (a column read in the forward pass, a row
+// read in the backward pass, both free of bank conflicts).  No reduction,
+// no barrier, no global load inside the chain.  An optional row scale is
+// folded in: x = s * solve(s * b).
+//
+// Numerics.  The factorization equals its plain PyTorch version
+// (pyipm_tpu_torch/ops/small_ldlt.py) bit for bit: the same right-looking
+// column order, the same zero-pivot guard (fabs(d_j) > 0, else divide by 1:
+// a NaN pivot divides by 1 too), l = a / safe rounded, and the trailing
+// update rounded as (l_i * l_k) * d_j then subtracted, with the _rn
+// intrinsics so the compiler does not contract it into an FMA.  The solve
+// subtracts its products one by one in step order (one FMA each) where the
+// plain version sums a row and subtracts once, so the two differ by
+// roundoff; every order is fixed, so a call is bitwise repeatable, and the
+// two scale products are rounded on their own.
 //
 // Build: see pyipm_tpu_torch/ops/_build.py (one object per source, linked
 // into one shared library with a plain C interface, loaded with ctypes).
@@ -57,6 +84,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarp = 32;
 constexpr int kMaxN = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -65,66 +93,217 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
-// Right-looking unpivoted LDL^T of `ipb` instances per block.  Each
-// instance's matrix lives in shared memory with row stride n + 1 (odd for
-// even n, so a column walk hits distinct banks).  Only the lower triangle
-// is read or updated: L and d depend on nothing else.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ldlt_factor_kernel(const T* __restrict__ A, T* __restrict__ L,
-                   T* __restrict__ d, int B, int n, int ipb) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int ld = n + 1;
-  const int tpi = kThreads / ipb;              // threads per instance
-  const int local = threadIdx.x / tpi;
-  const int lt = threadIdx.x % tpi;
-  const long long inst = (long long)blockIdx.x * ipb + local;
-  const bool valid = inst < B;
-  const long long nn = (long long)n * n;
-  T* a = sm + (long long)local * n * ld;
+template <typename T> struct Word16;
+template <> struct Word16<float> { using type = float4; };
+template <> struct Word16<double> { using type = double2; };
 
-  if (valid) {
-    const T* src = A + inst * nn;
-    for (int t = lt; t < n * n; t += tpi) a[(t / n) * ld + (t % n)] = src[t];
-  }
-  __syncthreads();
-
-  for (int j = 0; j < n; ++j) {
-    if (valid) {
-      // pivot and scaled column: l_ij = a_ij / d_j for i > j, stored in
-      // place of a_ij
-      const T dj = a[j * ld + j];
-      const T safe = (fabs(dj) > T(0)) ? dj : T(1);
-      for (int i = j + 1 + lt; i < n; i += tpi)
-        a[i * ld + j] = div_rn(a[i * ld + j], safe);
-    }
-    __syncthreads();
-    if (valid) {
-      // trailing rank-1 update of the lower triangle:
-      // a_rc -= (l_r * l_c) * d_j for j < c <= r
-      const T dj = a[j * ld + j];
-      const int m = n - j - 1;
-      for (int t = lt; t < m * m; t += tpi) {
-        const int r = j + 1 + t / m;
-        const int c = j + 1 + t % m;
-        if (c <= r)
-          a[r * ld + c] = sub_rn(a[r * ld + c],
-                                 mul_rn(mul_rn(a[r * ld + j], a[c * ld + j]),
-                                        dj));
+// Copy `total` consecutive entries of global memory at g, rows of `cols`
+// entries, to (kLoad) or from shared memory rows of stride `ld`: entry e is
+// (row e / cols, column e % cols).  All threads of the CTA take part; a
+// scalar head up to g's next 16-byte boundary, 16-byte words, a scalar
+// tail.  The caller orders it with __syncthreads.
+template <bool kLoad, typename T>
+__device__ __forceinline__ void copy_run(T* g, T* sm, int total, int cols,
+                                         int ld) {
+  using Word = typename Word16<T>::type;
+  constexpr int V = sizeof(Word) / sizeof(T);
+  const int head = min(
+      total,
+      (int)((16 - reinterpret_cast<uintptr_t>(g) % 16) % 16 / sizeof(T)));
+  const int nvec = (total - head) / V;
+  Word* words = reinterpret_cast<Word*>(g + head);
+  // kDepth words a thread in flight before the first is used
+  constexpr int kDepth = 4;
+  for (int q0 = threadIdx.x; q0 < nvec; q0 += kDepth * blockDim.x) {
+    Word word[kDepth];
+    if (kLoad) {
+#pragma unroll
+      for (int t = 0; t < kDepth; ++t) {
+        const int q = q0 + t * blockDim.x;
+        if (q < nvec) word[t] = __ldg(words + q);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kDepth; ++t) {
+      const int q = q0 + t * blockDim.x;
+      if (q >= nvec) break;
+      const int e = head + q * V;
+      int r = e / cols;
+      int c = e - r * cols;
+      T* v = reinterpret_cast<T*>(&word[t]);
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        if (kLoad) sm[r * ld + c] = v[u];
+        else v[u] = sm[r * ld + c];
+        if (++c == cols) { c = 0; ++r; }
+      }
+      if (!kLoad) words[q] = word[t];
+    }
+  }
+  // head entries [0, head) and tail entries [head + nvec V, total)
+  const int body = nvec * V;
+  for (int s = threadIdx.x; s < total - body; s += blockDim.x) {
+    const int e = s < head ? s : s + body;
+    const int r = e / cols;
+    T* at = sm + r * ld + (e - r * cols);
+    if (kLoad) *at = __ldg(g + e);
+    else g[e] = *at;
+  }
+}
+
+// A lane's row windows at step j: r0[k] and r1[k] hold entries (i0, j + k)
+// and (i1, j + k).  Steps them on: a_ic -= (l_i * l_c) * d_j for c = j + k,
+// 1 <= k < live, the result written to place k - 1, with l_c = col[k]
+// read in 16-byte broadcasts, each word loaded one ahead of its use.  The
+// places past a row's own end (columns past n, or past the group's last
+// row) get harmless updates and are never read again.  Without a second
+// row, r1 is one entry that is never updated.
+template <typename T, int K0, int K1>
+__device__ __forceinline__ void slide_rows(T (&r0)[K0], T (&r1)[K1], T l0,
+                                           T l1, T dj, const T* col,
+                                           int live) {
+  using Word = typename Word16<T>::type;
+  constexpr int V = sizeof(Word) / sizeof(T);
+  constexpr int Q = ((K0 > K1 ? K0 : K1) + V - 1) / V;
+  const Word* words = reinterpret_cast<const Word*>(col);
+  Word next = words[0];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    if (q * V >= live) break;
+    const Word word = next;
+    if (q + 1 < Q) next = words[q + 1];
+    const T* lc = reinterpret_cast<const T*>(&word);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int k = q * V + v;
+      if (k >= 1 && k < K0)
+        r0[k - 1] = sub_rn(r0[k], mul_rn(mul_rn(l0, lc[v]), dj));
+      if (k >= 1 && k < K1)
+        r1[k - 1] = sub_rn(r1[k], mul_rn(mul_rn(l1, lc[v]), dj));
+    }
+  }
+}
+
+// Right-looking unpivoted LDL^T, n <= N, of the CTA's instances: W lanes
+// (16 or 32) run one instance, lane l owning row i0 = l as r0 (W columns)
+// and, at N > 32, row i1 = l + 32 as r1 (N columns), each a window that
+// slides one column a step (slide_rows), so every register index is a
+// constant while the column loop stays a loop.  The finished l_ij goes to
+// the tile at once, d_j to the shared d.  Shared memory: per instance two
+// columns of N entries (16-byte aligned, first), then the tiles, then d.
+// Lanes past the batch end or past row n run along (the shuffles and
+// __syncwarp need every lane) and store nothing.
+template <typename T, int W, int N>
+__global__ void __launch_bounds__(kThreads)
+ldlt_factor_kernel(const T* __restrict__ A, T* __restrict__ L,
+                   T* __restrict__ d, int B, int n) {
+  constexpr bool kTwo = N > kWarp;      // a second row per lane
+  constexpr int K0 = kTwo ? kWarp : N;  // columns of row i0
+  constexpr int K1 = kTwo ? N : 1;      // columns of row i1
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = n | 1;
+  const int nn = n * n;
+  const int ipb = (blockDim.x / kWarp) * (kWarp / W);
+  const long long first = (long long)blockIdx.x * ipb;
+  const int count = (int)min((long long)ipb, (long long)B - first);
+  T* cols = reinterpret_cast<T*>(smem_raw);
+  T* tiles = cols + ipb * 2 * N;
+  T* dsm = tiles + ipb * n * ld;
+
+  copy_run<true>(const_cast<T*>(A) + first * nn, tiles, count * nn, n, ld);
+  __syncthreads();
+
+  const int lane = threadIdx.x % kWarp;
+  const int sl = lane % W;
+  const int li = (threadIdx.x / kWarp) * (kWarp / W) + lane / W;
+  const bool valid = li < count;
+  T* tile = tiles + li * n * ld;
+  T* colpair = cols + li * 2 * N;
+  const int i0 = sl, i1 = sl + kWarp;
+
+  T r0[K0], r1[K1];
+#pragma unroll
+  for (int k = 0; k < K0; ++k)
+    r0[k] = (valid && i0 < n && k < n) ? tile[i0 * ld + k] : T(0);
+#pragma unroll
+  for (int k = 0; k < K1; ++k)
+    r1[k] = (kTwo && valid && i1 < n && k < n) ? tile[i1 * ld + k] : T(0);
+
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {
+    // the pivot: place 0 of row j, in lane j % 32
+    const T dj = __shfl_sync(kFull, (kTwo && j >= kWarp) ? r1[0] : r0[0],
+                             j % W, W);
+    const T safe = (fabs(dj) > T(0)) ? dj : T(1);
+    if (valid && sl == 0) dsm[li * n + j] = dj;
+    // the scaled column, l_ij at col[i - j].  Only live rows divide: a
+    // finished row's window holds leftovers (a padding row, zeros), and a
+    // division whose operands leave the fast path's range takes the slow
+    // path for the whole warp.
+    T* col = colpair + (j & 1) * N;
+    T l0 = T(0), l1 = T(0);
+    if (valid && i0 > j && i0 < n) {
+      l0 = div_rn(r0[0], safe);
+      col[i0 - j] = l0;
+      tile[i0 * ld + j] = l0;
+    }
+    if (kTwo && valid && i1 > j && i1 < n) {
+      l1 = div_rn(r1[0], safe);
+      col[i1 - j] = l1;
+      tile[i1 * ld + j] = l1;
+    }
+    __syncwarp();
+    slide_rows(r0, r1, l0, l1, dj, col, (kTwo ? n : min(n, K0)) - j);
   }
 
-  if (valid) {
-    T* dst = L + inst * nn;
-    for (int t = lt; t < n * n; t += tpi) {
-      const int r = t / n, c = t % n;
-      dst[t] = (r > c) ? a[r * ld + c] : (r == c ? T(1) : T(0));
+  // the unit diagonal and the zeros above it
+  if (valid && i0 < n)
+    for (int c = i0; c < n; ++c) tile[i0 * ld + c] = T(c == i0);
+  if (kTwo && valid && i1 < n)
+    for (int c = i1; c < n; ++c) tile[i1 * ld + c] = T(c == i1);
+  __syncthreads();
+  copy_run<false>(L + first * nn, tiles, count * nn, n, ld);
+  copy_run<false>(d + first * n, dsm, count * n, n, n);
+}
+
+// The same factorization for 64 < n <= 128: one instance per 128-thread
+// CTA, the matrix in shared memory (stride n | 1), thread i owning row i,
+// two CTA barriers per column step.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ldlt_factor_kernel_cta(const T* __restrict__ A, T* __restrict__ L,
+                       T* __restrict__ d, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  const int ld = n | 1;
+  const long long nn = (long long)n * n;
+  T* dsm = tile + n * ld;
+  const long long inst = blockIdx.x;
+  copy_run<true>(const_cast<T*>(A) + inst * nn, tile, (int)nn, n, ld);
+  __syncthreads();
+
+  const int i = threadIdx.x;
+  const bool own = i < n;
+  T* row = tile + i * ld;
+  for (int j = 0; j < n - 1; ++j) {
+    const T dj = tile[j * ld + j];
+    const T safe = (fabs(dj) > T(0)) ? dj : T(1);
+    if (own && i > j) row[j] = div_rn(row[j], safe);
+    __syncthreads();
+    if (own && i > j) {
+      const T li = row[j];
+      for (int c = j + 1; c <= i; ++c)
+        row[c] = sub_rn(row[c], mul_rn(mul_rn(li, tile[c * ld + j]), dj));
     }
-    for (int t = lt; t < n; t += tpi) d[inst * n + t] = a[t * ld + t];
+    __syncthreads();
   }
+  if (own) {
+    dsm[i] = row[i];
+    for (int c = i; c < n; ++c) row[c] = T(c == i);
+  }
+  __syncthreads();
+  copy_run<false>(L + inst * nn, tile, (int)nn, n, ld);
+  copy_run<false>(d + inst * n, dsm, n, n, n);
 }
 
 __device__ __forceinline__ float fnma(float a, float b, float c) {
@@ -134,16 +313,10 @@ __device__ __forceinline__ double fnma(double a, double b, double c) {
   return fma(-a, b, c);
 }
 
-template <typename T> struct Word16;
-template <> struct Word16<float> { using type = float4; };
-template <> struct Word16<double> { using type = double2; };
-
 // x = s * (L^-T diag(d)^-1 L^-1 (s * b)), s = 1 without `scale`.  W lanes
 // (16 or 32) run one instance, lane l owning entries l + 32 u, u < NT
-// (NT = 1 at W = 16).  The CTA's instances are consecutive, so their
-// factors are one contiguous run of L, staged into tiles of row stride
-// ld = n | 1 (odd: lanes walking a column hit distinct banks).  Only
-// shuffles order the chain, and every lane of a warp takes part in them,
+// (NT = 1 at W = 16).  The CTA's factors are staged by copy_run into
+// tiles of row stride ld = n | 1.  Only shuffles order the chain, and every lane of a warp takes part in them,
 // so lanes past the batch end run along on zeros and skip the loads and
 // the store.
 template <typename T, int NT, int W>
@@ -153,49 +326,13 @@ ldlt_solve_kernel(const T* __restrict__ L, const T* __restrict__ d,
                   T* __restrict__ x, int B, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  using Word = typename Word16<T>::type;
-  constexpr int V = sizeof(Word) / sizeof(T);
   const int ld = n | 1;
   const int nn = n * n;
   const int ipb = (blockDim.x / kWarp) * (kWarp / W);
   const long long first = (long long)blockIdx.x * ipb;
   const int count = (int)min((long long)ipb, (long long)B - first);
-  const int total = count * nn;
-  const T* src = L + first * nn;
 
-  // stage: flat entry e of the run is entry (r, c) of local instance li.
-  // The run starts wherever this CTA's first instance lies, so a scalar
-  // head brings it to the next 16-byte boundary, 16-byte words follow, and
-  // a scalar tail ends it.
-  const int head = min(
-      total, (int)((16 - reinterpret_cast<uintptr_t>(src) % 16) % 16 /
-                   sizeof(T)));
-  const int nvec = (total - head) / V;
-  const Word* words = reinterpret_cast<const Word*>(src + head);
-  for (int q = threadIdx.x; q < nvec; q += blockDim.x) {
-    const Word word = __ldg(words + q);
-    const T* v = reinterpret_cast<const T*>(&word);
-    const int e = head + q * V;
-    int li = e / nn;
-    int r = (e - li * nn) / n;
-    int c = e - li * nn - r * n;
-#pragma unroll
-    for (int u = 0; u < V; ++u) {
-      sm[(li * n + r) * ld + c] = v[u];
-      if (++c == n) {
-        c = 0;
-        if (++r == n) { r = 0; ++li; }
-      }
-    }
-  }
-  // head entries [0, head) and tail entries [head + nvec V, total)
-  const int body = nvec * V;
-  for (int s = threadIdx.x; s < total - body; s += blockDim.x) {
-    const int e = s < head ? s : s + body;
-    const int li = e / nn;
-    const int r = (e - li * nn) / n;
-    sm[(li * n + r) * ld + (e - li * nn - r * n)] = src[e];
-  }
+  copy_run<true>(const_cast<T*>(L) + first * nn, sm, count * nn, n, ld);
   __syncthreads();
 
   const int lane = threadIdx.x % kWarp;
@@ -283,43 +420,75 @@ cudaError_t opt_in_smem(Kernel kernel, std::atomic<bool>* done, size_t bytes) {
   return err;
 }
 
-template <typename T>
-int launch_factor(const void* A, void* L, void* d, int B, int n,
-                  void* stream) {
-  if (B <= 0 || n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
-  const int ipb = (n <= 16) ? 4 : 1;
-  const size_t smem = (size_t)ipb * n * (n + 1) * sizeof(T);
+// Shared memory a CTA of the batched kernels may take so that several fit
+// on an SM; an instance larger than this gets a CTA (of one warp) to itself.
+constexpr size_t kCtaSmem = 72 * 1024;
+
+// Warps of a batched CTA: four, halved until the CTA's shared memory (at
+// `per_warp` bytes a warp) fits kCtaSmem.
+int cta_warps(size_t per_warp) {
+  int warps = kThreads / kWarp;
+  while (warps > 1 && warps * per_warp > kCtaSmem) warps /= 2;
+  return warps;
+}
+
+template <typename T, int W, int N>
+int launch_factor_as(const T* A, T* L, T* d, int B, int n,
+                     cudaStream_t stream) {
+  // per instance: two columns, the tile, d
+  const size_t inst = (2 * N + (size_t)n * (n | 1) + n) * sizeof(T);
+  const int per_warp = kWarp / W;
+  const int warps = cta_warps(per_warp * inst);
+  const int ipb = warps * per_warp;
+  const size_t smem = ipb * inst;
   if (smem > kOptInAbove) {
     static std::atomic<bool> done[kMaxDevices];
-    cudaError_t err = opt_in_smem(ldlt_factor_kernel<T>, done,
-                                  (size_t)kMaxN * (kMaxN + 1) * sizeof(T));
+    cudaError_t err = opt_in_smem(ldlt_factor_kernel<T, W, N>, done,
+                                  kCtaSmem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int grid = (B + ipb - 1) / ipb;
-  ldlt_factor_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(A), static_cast<T*>(L), static_cast<T*>(d), B, n,
-      ipb);
+  ldlt_factor_kernel<T, W, N><<<(B + ipb - 1) / ipb, warps * kWarp, smem,
+                                stream>>>(A, L, d, B, n);
   return (int)cudaGetLastError();
 }
 
-// Shared memory a solve CTA may take so that several fit on an SM; a tile
-// larger than this gets a CTA (of one warp) to itself.
-constexpr size_t kSolveSmem = 72 * 1024;
+template <typename T>
+int launch_factor(const void* A_, void* L_, void* d_, int B, int n,
+                  void* stream_) {
+  if (B <= 0 || n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  const T* A = static_cast<const T*>(A_);
+  T* L = static_cast<T*>(L_);
+  T* d = static_cast<T*>(d_);
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (n <= 16) return launch_factor_as<T, 16, 16>(A, L, d, B, n, stream);
+  if (n <= 32) return launch_factor_as<T, 32, 32>(A, L, d, B, n, stream);
+  if (n <= 48) return launch_factor_as<T, 32, 48>(A, L, d, B, n, stream);
+  if (n <= 64) return launch_factor_as<T, 32, 64>(A, L, d, B, n, stream);
+  const size_t smem = ((size_t)n * (n | 1) + n) * sizeof(T);
+  if (smem > kOptInAbove) {
+    static std::atomic<bool> done[kMaxDevices];
+    cudaError_t err = opt_in_smem(
+        ldlt_factor_kernel_cta<T>, done,
+        ((size_t)kMaxN * (kMaxN | 1) + kMaxN) * sizeof(T));
+    if (err != cudaSuccess) return (int)err;
+  }
+  ldlt_factor_kernel_cta<T><<<B, kThreads, smem, stream>>>(A, L, d, n);
+  return (int)cudaGetLastError();
+}
 
 template <typename T, int NT, int W>
 int launch_solve_as(const T* L, const T* d, const T* b, const T* scale, T* x,
                     int B, int n, cudaStream_t stream) {
   const size_t tile = (size_t)n * (n | 1) * sizeof(T);
   const int per_warp = kWarp / W;
-  int warps = kThreads / kWarp;
-  while (warps > 1 && warps * per_warp * tile > kSolveSmem) warps /= 2;
+  const int warps = cta_warps(per_warp * tile);
   const int ipb = warps * per_warp;
   const size_t smem = ipb * tile;
   if (smem > kOptInAbove) {
     static std::atomic<bool> done[kMaxDevices];
     cudaError_t err = opt_in_smem(
         ldlt_solve_kernel<T, NT, W>, done,
-        std::max(kSolveSmem, (size_t)kMaxN * (kMaxN | 1) * sizeof(T)));
+        std::max(kCtaSmem, (size_t)kMaxN * (kMaxN | 1) * sizeof(T)));
     if (err != cudaSuccess) return (int)err;
   }
   ldlt_solve_kernel<T, NT, W><<<(B + ipb - 1) / ipb, warps * kWarp, smem,

@@ -1,6 +1,7 @@
 """Profile one fleet solve of the port on the card: where the wall goes.
 
-    python scripts/profile_fleet.py [--trace-dir DIR]
+    python scripts/profile_fleet.py [--trace-dir DIR] [--root DIR]
+                                    [--save FILE.npz] [--compare FILE.npz]
 
 The fleet is the one ``chip_smoke.py`` solves on the card (its ``SEED``,
 ``B``, ``D``, ``NLIN`` constants: 10,000 random QPs, D = 16, float32,
@@ -10,11 +11,19 @@ three unprofiled solves from x0 (their walls), then the same solve under
 rate and mean iterations, the device's busy time and idle share, kernel
 launches per flat step, the device time and launches of the two
 hand-written kernels (``ldlt_factor_kernel``, ``ldlt_solve_kernel``) and
-their share of the busy time, and the kernels by device time; with
-``--trace-dir``, also writes a Chrome trace there.  Needs one CUDA card.
+their share of the busy time, and the kernels by device time.  The two
+kernels' launches, instances and device time are also split by system
+size n (16: the condensed systems, 36: the SOC normal matrices): launches
+and instances from the wrappers' calls, device time from the kernel's
+template name where it carries the size bucket.  With ``--trace-dir``,
+also writes a Chrome trace there; ``--root`` imports the package from
+another checkout (a parent tree, to compare two in one call); ``--save``
+writes the profiled solve's per-instance signals, iteration counts and x,
+and ``--compare`` holds them against such a file.  Needs one CUDA card.
 """
 
 import argparse
+import collections
 import os
 import subprocess
 import sys
@@ -37,7 +46,12 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--root", default=None)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--compare", default=None)
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     if not torch.cuda.is_available():
         print("profile_fleet: needs a CUDA card", file=sys.stderr)
         return 1
@@ -45,7 +59,24 @@ def main():
     from pyipm_tpu_torch.models.random_nlp import (
         make_qp_problem, sample_qp_batch,
     )
+    from pyipm_tpu_torch.ops import linalg as lin
     from pyipm_tpu_torch.ops import small_ldlt as sl
+
+    print(f"package: {os.path.dirname(sl.__file__)}", flush=True)
+    # calls and instances of the two kernels' wrappers by (kernel, n); the
+    # solver reaches them through ops/linalg.py's names
+    calls = collections.Counter()
+    insts = collections.Counter()
+
+    def tally(kind, fn):
+        def wrapped(M, *a, **kw):
+            calls[kind, M.shape[-1]] += 1
+            insts[kind, M.shape[-1]] += M.shape[0]
+            return fn(M, *a, **kw)
+        return wrapped
+
+    lin.ldlt_factor_small = tally("factor", lin.ldlt_factor_small)
+    lin.ldlt_solve_small = tally("solve", lin.ldlt_solve_small)
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -69,6 +100,8 @@ def main():
     for counts in (_sync.COUNTS, sl.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    calls.clear()
+    insts.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -105,11 +138,30 @@ def main():
               f"launches", flush=True)
     print(f"the two hand-written kernels: {own_us / 1e3:.3f} ms = "
           f"{100 * own_us / busy_us:.1f}% of device busy", flush=True)
+    for kind, n in sorted(calls):
+        print(f"{kind} n={n}: {calls[kind, n]} calls, {insts[kind, n]} "
+              f"instances ({insts[kind, n] / calls[kind, n]:.1f} a call)",
+              flush=True)
+    for name in OWN_KERNELS:
+        for e in kernels:
+            if name in e.key:
+                print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                      f"{e.count:6d} launches  {e.key[:110]}", flush=True)
     print("kernels by device time (ms, launches):")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:15]:
         print(f"    {e.self_device_time_total / 1e3:9.3f}  {e.count:6d}  "
               f"{e.key[:90]}")
+    if args.save:
+        np.savez(args.save, signal=sig, iters=its, x=res.x.cpu().numpy())
+    if args.compare:
+        ref = np.load(args.compare)
+        x = res.x.cpu().numpy()
+        dx = np.abs(x - ref["x"]) / (1 + np.abs(ref["x"]))
+        print(f"against {args.compare}: signals equal "
+              f"{int(np.sum(sig == ref['signal']))}/{sig.size}, iterations "
+              f"equal {int(np.sum(its == ref['iters']))}/{its.size}, max "
+              f"|dx|/(1+|x|) {float(dx.max()):.3e}", flush=True)
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace_dir,

@@ -147,6 +147,93 @@ def test_solve_kernel_unaligned_factors(card, dtype):
     assert torch.equal(x, sl.ldlt_solve_small(L, d, b)[1:])
 
 
+def _same_bits(a, b):
+    """Bitwise equal, NaN payloads aside: NaN at the same entries, every
+    other entry with the same bits (so -0.0 differs from 0.0)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return (a.dtype == b.dtype and torch.equal(na, nb)
+            and torch.equal(a.view(it)[~na], b.view(it)[~nb]))
+
+
+FACTOR_SIZES = [1, 2, 15, 16, 17, 31, 32, 33, 36, 48, 49, 63, 64, 65, 69, 95,
+                97, 127, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", FACTOR_SIZES)
+def test_factor_kernel_sizes_repeatable(card, n, dtype):
+    """Every size bucket of the factor kernel (half-warps to n = 16, a warp
+    to 32, 48 and 64, a lane holding one or two rows, the CTA scheme above)
+    and their edges, at a batch that fills no CTA evenly, half the instances
+    indefinite: bitwise the plain version, bitwise repeatable over 20
+    calls, one counted launch per call."""
+    rng = np.random.default_rng(1000 + n)
+    B = 1003 if n <= 36 else 203
+    A = _rand_sym(rng, B, n)
+    A[::2] -= (n / 2) * np.eye(n)
+    A = torch.as_tensor(A, dtype=getattr(torch, dtype), device=card)
+    n0 = sl.LAUNCHES["factor"]
+    outs = [sl.ldlt_factor_small(A) for _ in range(21)]
+    Lr, dr = sl.ldlt_factor_small_ref(A)
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES["factor"] == n0 + 21
+    L, d = outs[0]
+    assert bool((dr < 0).any()) and bool((dr > 0).any())
+    assert _same_bits(L, Lr) and _same_bits(d, dr)
+    assert all(_same_bits(L, L2) and _same_bits(d, d2) for L2, d2 in outs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [5, 69, 127])
+def test_factor_kernel_unaligned_slice(card, n, dtype):
+    """A batch slice A[1:] starts off a 16-byte boundary: staged from a
+    scalar head, then 16-byte words; the same bits as its contiguous
+    copy and as the plain version."""
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(_rand_sym(rng, 41, n), dtype=getattr(torch, dtype),
+                        device=card)
+    assert A[1:].data_ptr() % 16 and A[1:].is_contiguous()
+    L, d = sl.ldlt_factor_small(A[1:])
+    L2, d2 = sl.ldlt_factor_small(A[1:].clone())
+    Lr, dr = sl.ldlt_factor_small_ref(A[1:])
+    assert _same_bits(L, L2) and _same_bits(d, d2)
+    assert _same_bits(L, Lr) and _same_bits(d, dr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", ["zero_pivot", "nan", "inf"])
+def test_factor_kernel_special_values(card, kind, dtype):
+    """Exact zero pivots (divided by 1), a NaN and an Inf entry (a NaN
+    pivot divides by 1 too): bitwise the plain version, NaNs at the same
+    entries, at a size of each bucket."""
+    dt = getattr(torch, dtype)
+    if kind == "zero_pivot":
+        cases = [np.array([[[0.0, 1.0, 2.0], [1.0, 0.0, 3.0],
+                            [2.0, 3.0, 1.0]],
+                           [[4.0, 2.0, 0.0], [2.0, 1.0, 5.0],
+                            [0.0, 5.0, 2.0]]])]
+        cases += [_zero_pivot_panel(n)[None] for n in (16, 36, 100)]
+    else:
+        bad = float("nan") if kind == "nan" else float("inf")
+        cases = []
+        for n in (5, 16, 36, 64, 100):
+            A = _rand_sym(np.random.default_rng(n), 6, n)
+            A[2, n // 2, min(1, n - 1)] = bad       # below the diagonal
+            A[4, 0, 0] = bad                        # the first pivot
+            cases.append(A)
+    for A in cases:
+        A = torch.as_tensor(A, dtype=dt, device=card)
+        L, d = sl.ldlt_factor_small(A)
+        Lr, dr = sl.ldlt_factor_small_ref(A)
+        assert _same_bits(L, Lr) and _same_bits(d, dr), A.shape
+        if kind != "zero_pivot":
+            assert not bool(torch.isfinite(d).all())
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_bad_input_on_the_card(card):
     A = torch.eye(4, device=card).repeat(2, 1, 1)

@@ -60,10 +60,14 @@ def test_plain_solve_matches_pallas_kernel(rng, B, n):
     np.testing.assert_allclose(x, xk, rtol=2e-3, atol=6e-3)
 
 
-@pytest.mark.parametrize("B,n", [(8, 16), (8, 36), (4, 48)])
+@pytest.mark.parametrize("B,n", [(8, 16), (8, 36), (4, 48), (4, 1), (6, 17),
+                                 (6, 33), (4, 64), (4, 65), (2, 128)])
 def test_f64_matches_plain_jax(rng, B, n):
     """float64 against ldlt_unblocked / ldlt_solve_inv, <= 1e-10 relative;
-    half the instances made indefinite."""
+    half the instances made indefinite.  The sizes include the edges of the
+    CUDA factor kernel's layouts (half-warps to 16, a warp to 32, 48 and 64,
+    the CTA scheme above), where the card tests hold the kernel to
+    this plain version bit for bit."""
     A = _rand_sym(rng, B, n)
     A[::2] -= (n / 2) * np.eye(n)
     b = rng.standard_normal((B, n))
@@ -184,6 +188,37 @@ def test_zero_pivot_guard_matches_jax():
     np.testing.assert_array_equal(np.tril(L.numpy()), np.tril(np.asarray(Lk)))
     np.testing.assert_allclose(x.numpy(), np.asarray(xk), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("B,n", [(130, 16), (130, 36)])
+def test_non_finite_instances_match_pallas_kernel(rng, B, n):
+    """A batch in which a few instances hold a NaN or an Inf: the plain
+    factor and the Pallas kernel (interpret mode) give a non-finite pivot
+    to the same instances, and every other instance is bitwise what
+    factoring it alone gives and within the f32 tolerance of the kernel.
+    Where NaN lands inside a bad instance is not compared: the Pallas
+    kernel masks its update by multiplying, so NaN * 0 reaches finished
+    columns, which the port's update does not touch."""
+    A = _rand_sym(rng, B, n).astype(np.float32)
+    bad = np.array([3, 64, 127])
+    A[3, n // 2, 1] = A[3, 1, n // 2] = np.nan
+    A[64, 0, 0] = np.inf
+    A[127, n - 1, n - 1] = np.nan
+    with pltpu.force_tpu_interpret_mode():
+        Lk, dk = pk.batched_ldlt_factor(jnp.asarray(A))
+    Lk, dk = np.asarray(Lk), np.asarray(dk)
+    L, d = sl.ldlt_factor_small(torch.as_tensor(A))
+    good = np.setdiff1d(np.arange(B), bad)
+    port_bad = np.flatnonzero(~torch.isfinite(d).all(dim=1).numpy())
+    kernel_bad = np.flatnonzero(~np.isfinite(dk).all(axis=1))
+    np.testing.assert_array_equal(port_bad, bad)
+    np.testing.assert_array_equal(kernel_bad, bad)
+    L1, d1 = sl.ldlt_factor_small(torch.as_tensor(A[good]))
+    assert torch.equal(L[good], L1) and torch.equal(d[good], d1)
+    np.testing.assert_allclose(d[good].numpy(), dk[good], rtol=5e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(np.tril(L[good].numpy()), np.tril(Lk[good]),
+                               rtol=5e-3, atol=1e-3)
 
 
 def test_cpu_tensors_take_the_plain_versions(rng):
