@@ -28,7 +28,13 @@ Phases, each raising on failure:
   8. slice B: the D = 4096, M = 256 dense NLP through ``solve`` on cuda:0,
      with the 'condensed' and with the 'ldlt' linear solver, counters
      reset just before each timed solve;
-  9. a D = 1000, M = 64 dense NLP on the card and on CPU tensors.
+  9. a D = 1000, M = 64 dense NLP on the card and on CPU tensors;
+ 10. the Mehrotra predictor-corrector on phase 4's fleet, the first 64
+     instances also on CPU tensors;
+ 11. L-BFGS(8) on a D = 4096, M = 8 dense NLP in float64 through ``solve``;
+ 12. the ``IPM`` facade through the CLI's ``main`` on the ten reference
+     problems (exact Hessian, L-BFGS, 'lu', float32), and
+     ``python -m pyipm_tpu_torch`` once as a process.
 Each kernel is timed twice: ``ms``, CUDA events around one wrapper call
 (what the path sees, host enqueue included), and ``device_ms``, the
 kernel's own device time per launch from ``torch.profiler``, with the
@@ -40,7 +46,11 @@ result.  Needs one CUDA card and the repository checkout.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -78,6 +88,17 @@ REPS = 50                      # CUDA-event timings of a kernel call
 DENSE_D, DENSE_M, DENSE_H = 4096, 256, 256
 DENSE_SEED, DENSE_X0 = 0, 1e-3
 CROSS_D, CROSS_M = 1000, 64
+# the BENCH_r05 convergence figure of the JAX package's Mehrotra fleet on a
+# TPU: a target for the iteration count only, never for a time
+TPU_ERA_MEHROTRA_MEAN_ITERS = 4.38
+# phase 11: the configuration of tests/test_lbfgs_large.py:26-37
+LBFGS_D, LBFGS_M, LBFGS_MEM, LBFGS_SEED = 4096, 8, 8, 0
+# phase 12: the CLI runs, each with --seed 42
+CLI_RUNS = ([[str(n)] for n in range(1, 11)]
+            + [[str(n), "--lbfgs", "4"] for n in (1, 4, 5, 10)]
+            + [[str(n), "--linear-solver", "lu"] for n in (3, 7, 8, 10)]
+            + [["7", "--f32"]])
+CLI_STOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
@@ -684,6 +705,77 @@ def dense_path(solve, cfg, problem, data, device, counters, _sync):
     return out
 
 
+def cross_check(sig, its, x, res_cpu, what, min_same_iters):
+    """Hold the card's first N_CROSS instances to the CPU path's: equal
+    signals, at least ``min_same_iters`` equal iteration counts, and x
+    within 1e-3 (1 + |x|) where both converged."""
+    sg, sc = sig[:N_CROSS], res_cpu.signal.numpy()
+    ig, ic = its[:N_CROSS], res_cpu.iter_count.numpy()
+    xg, xc = x[:N_CROSS], res_cpu.x.numpy()
+    same_iters = int(np.sum(ig == ic))
+    both = np.isin(sg, (1, 2)) & np.isin(sc, (1, 2))
+    xerr = np.abs(xg - xc) / (1.0 + np.abs(xc))
+    xerr_max = float(xerr[both].max()) if both.any() else 0.0
+    print(f"  {what}: signals equal {int(np.sum(sg == sc))}/{N_CROSS}, "
+          f"iterations equal {same_iters}/{N_CROSS}, max |dx|/(1+|x|) "
+          f"{xerr_max:.3e}", flush=True)
+    if not np.array_equal(sg, sc):
+        raise AssertionError(f"{what}: signals differ between kernel and "
+                             f"plain path")
+    if same_iters < min_same_iters:
+        raise AssertionError(f"{what}: iteration counts equal on "
+                             f"{same_iters} < {min_same_iters}")
+    if xerr_max > 1e-3:
+        raise AssertionError(f"{what}: x differs by {xerr_max} > 1e-3 "
+                             f"(1+|x|)")
+    return dict(signals_equal=int(np.sum(sg == sc)), iters_equal=same_iters,
+                max_rel_dx=xerr_max)
+
+
+def require_launched(launches, what):
+    if min(launches.values()) == 0:
+        raise AssertionError(f"{what}: a kernel was not launched: "
+                             f"{launches}")
+
+
+def cli_runs():
+    """Phase 12: every CLI_RUNS entry through ``cli.main`` in this process
+    (on the card, the CLI's default), then ``python -m pyipm_tpu_torch``
+    once as a process.  Each must report convergence to Ktol or Ftol and a
+    distance to the nearest optimum within CLI_STOL."""
+    from pyipm_tpu_torch import cli
+
+    def check(args, out):
+        conv = re.search(r"Converged to (Ktol|Ftol) tolerance", out)
+        dist = re.search(r"Distance to nearest optimum: (\S+)", out)
+        dist = float(dist.group(1)) if dist else float("nan")
+        if not conv or not dist <= CLI_STOL:
+            raise AssertionError(f"{' '.join(args)}: not converged within "
+                                 f"{CLI_STOL}:\n{out}")
+        print(f"  {' '.join(args):28s} {conv.group(0)}, distance to the "
+              f"nearest optimum {dist:.3e}", flush=True)
+        return dist
+
+    worst = 0.0
+    t0 = time.perf_counter()
+    for args in CLI_RUNS:
+        args = args + ["--seed", "42"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(args)
+        worst = max(worst, check(args, buf.getvalue()))
+    wall = time.perf_counter() - t0
+    args = ["-m", "pyipm_tpu_torch", "7", "--seed", "42"]
+    proc = subprocess.run([sys.executable] + args, capture_output=True,
+                          text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode:
+        raise AssertionError(f"python {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stderr}")
+    check(["python"] + args, proc.stdout)
+    return dict(runs=len(CLI_RUNS) + 1, worst_distance=worst, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -765,29 +857,13 @@ def main() -> int:
     conv = torch.as_tensor(np.isin(sig, (1,)), device=device)
     if not bool((res.kkt[conv] <= cfg.Ktol).all()):
         raise AssertionError("a Ktol-converged instance has KKT > Ktol")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    require_launched(launches, "fleet")
 
     phase(f"5 plain path on CPU, first {N_CROSS} instances")
     data_cpu = type(data)(*(t[:N_CROSS].cpu() for t in data))
     res_cpu = solve_batch(problem, x0[:N_CROSS].cpu(), cfg, params=data_cpu)
-    sg, sc = sig[:N_CROSS], res_cpu.signal.numpy()
-    ig, ic = its[:N_CROSS], res_cpu.iter_count.numpy()
-    xg, xc = res.x[:N_CROSS].cpu().numpy(), res_cpu.x.numpy()
-    same_iters = int(np.sum(ig == ic))
-    both = np.isin(sg, (1, 2)) & np.isin(sc, (1, 2))
-    xerr = np.abs(xg - xc) / (1.0 + np.abs(xc))
-    xerr_max = float(xerr[both].max()) if both.any() else 0.0
-    print(f"  signals equal {int(np.sum(sg == sc))}/{N_CROSS}, iterations "
-          f"equal {same_iters}/{N_CROSS}, max |dx|/(1+|x|) {xerr_max:.3e}",
-          flush=True)
-    if not np.array_equal(sg, sc):
-        raise AssertionError("signals differ between kernel and plain path")
-    if same_iters < 58:
-        raise AssertionError(f"iteration counts equal on {same_iters} < 58")
-    if xerr_max > 1e-3:
-        raise AssertionError(f"x differs by {xerr_max} > 1e-3 (1+|x|)")
-    del data, res, res_cpu
+    cross_check(sig, its, res.x.cpu().numpy(), res_cpu, "adaptive", 58)
+    del res, res_cpu
 
     # the solver turns TF32 off itself; the direct calls below do too
     with matmul_precision(cfg.matmul_precision):
@@ -845,6 +921,97 @@ def main() -> int:
     if xerr > 1e-3:
         raise AssertionError(f"x differs by {xerr} > 1e-3 (1+|x|)")
 
+    phase("10 Mehrotra predictor-corrector on phase 4's fleet, cuda:0")
+    mcfg = cfg.replace(mu_strategy="mehrotra")
+    solve_batch(problem, torch.zeros((B, D), device=device), mcfg,
+                params=data)                                     # warm-up
+    torch.cuda.synchronize()
+    reset(sl.LAUNCHES, ll.LAUNCHES, _sync.COUNTS)
+    t0 = time.perf_counter()
+    mres = solve_batch(problem, x0, mcfg, params=data)
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    mlaunches = dict(sl.LAUNCHES)
+    mstats = dict(_sync.COUNTS)
+    msig = mres.signal.cpu().numpy()
+    mits = mres.iter_count.cpu().numpy()
+    mhit = float(np.mean(np.isin(msig, (1, 2))))
+    mtotal = int(mits.sum())
+    print(f"  hit_rate={mhit:.4f} mean_iters={mits.mean():.3f} (TPU-era "
+          f"convergence figure of the JAX package, BENCH_r05 "
+          f"mehrotra_mean_iters: {TPU_ERA_MEHROTRA_MEAN_ITERS}) "
+          f"max_iters={int(mits.max())} total_iters={mtotal} "
+          f"wall_s={mwall:.4f} iters_per_s={mtotal / mwall:.1f} "
+          f"flat_steps={mstats['flat_steps']} "
+          f"host_syncs={mstats['host_syncs']} "
+          f"launches_factor={mlaunches['factor']} "
+          f"launches_solve={mlaunches['solve']} per solve; adaptive (phase "
+          f"4): mean_iters={fleet['mean_iters']:.3f} "
+          f"wall_s={fleet['wall_s']:.4f} flat_steps={fleet['flat_steps']} "
+          f"host_syncs={fleet['host_syncs']} launches {launches}",
+          flush=True)
+    if not bool(torch.isfinite(mres.x).all()):
+        raise AssertionError("Mehrotra fleet solution is not finite")
+    if mhit < 0.99:
+        raise AssertionError(f"Mehrotra hit rate {mhit} < 0.99")
+    require_launched(mlaunches, "Mehrotra fleet")
+    mres_cpu = solve_batch(problem, x0[:N_CROSS].cpu(), mcfg,
+                           params=data_cpu)
+    mcross = cross_check(msig, mits, mres.x.cpu().numpy(), mres_cpu,
+                         "mehrotra", N_CROSS)
+    mehrotra = dict(hit_rate=mhit, mean_iters=float(mits.mean()),
+                    max_iters=int(mits.max()), wall_s=mwall,
+                    iters_per_s=mtotal / mwall,
+                    flat_steps=mstats["flat_steps"],
+                    host_syncs=mstats["host_syncs"], launches=mlaunches,
+                    cpu_cross_check=mcross)
+    del data, mres, mres_cpu
+
+    phase(f"11 L-BFGS({LBFGS_MEM}) on the dense NLP D={LBFGS_D}, "
+          f"M={LBFGS_M}, float64, cuda:0")
+    # the configuration of tests/test_lbfgs_large.py:26-37; its instance
+    # comes from jax.random.key(0), which cannot be drawn without JAX, so
+    # the port's numpy sampler with seed LBFGS_SEED stands in for it
+    lcfg = IPMConfig(float_dtype="float64", verbosity=0, lbfgs=LBFGS_MEM,
+                     niter=10, miter=60)
+    lproblem = make_dense_nlp_problem(LBFGS_D, LBFGS_M)
+    ldata = sample_dense_nlp(LBFGS_SEED, LBFGS_D, LBFGS_M, DENSE_H,
+                             dtype="float64", device=device)
+    lx0 = torch.zeros(LBFGS_D, dtype=torch.float64, device=device)
+    solve(lproblem, lx0, lcfg, params=ldata)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset(sl.LAUNCHES, ll.LAUNCHES, _sync.COUNTS)
+    t0 = time.perf_counter()
+    lres = solve(lproblem, lx0, lcfg, params=ldata)
+    torch.cuda.synchronize()
+    lbfgs = dict(signal=int(lres.signal), iters=int(lres.iter_count),
+                 kkt_max=float(lres.kkt.max()),
+                 wall_s=time.perf_counter() - t0,
+                 host_syncs=_sync.COUNTS["host_syncs"],
+                 flat_steps=_sync.COUNTS["flat_steps"],
+                 launches={**sl.LAUNCHES, **ll.LAUNCHES},
+                 max_memory_bytes=torch.cuda.max_memory_allocated(device))
+    print(f"  signal {lbfgs['signal']} iterations {lbfgs['iters']} max KKT "
+          f"{lbfgs['kkt_max']:.3e} wall {lbfgs['wall_s']:.4f} s host syncs "
+          f"{lbfgs['host_syncs']} flat steps {lbfgs['flat_steps']} launches "
+          f"{lbfgs['launches']} max_memory_allocated "
+          f"{lbfgs['max_memory_bytes']} B", flush=True)
+    if lbfgs["signal"] != 1 or lbfgs["kkt_max"] > lcfg.Ktol:
+        raise AssertionError(f"L-BFGS dense NLP: signal {lbfgs['signal']}, "
+                             f"KKT {lbfgs['kkt_max']}")
+    require_launched(dict(sl.LAUNCHES), "L-BFGS dense NLP")
+    del ldata
+
+    phase("12 the IPM facade and the CLI on cuda:0, problems 1-10")
+    reset(sl.LAUNCHES, ll.LAUNCHES, _sync.COUNTS)
+    facade = cli_runs()
+    facade["launches"] = dict(sl.LAUNCHES)
+    print(f"  {facade['runs']} runs converged (in-process runs "
+          f"{facade['wall_s']:.2f} s, launches {facade['launches']})",
+          flush=True)
+    require_launched(facade["launches"], "CLI")
+
     def row(name, replaces, source, launches_, rec_, shape):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_,
@@ -884,7 +1051,10 @@ def main() -> int:
             "pyipm_tpu_torch/csrc/bwd_sweep_blocks.cu",
             path_launches["condensed"]["bwd_sweep_blocks"],
             big["bwd_sweep_blocks"], big["bwd_sweep_blocks"]["shape"]),
-    ], "launches_by_path": {"fleet": launches, **path_launches},
+    ], "launches_by_path": {"fleet": launches, **path_launches,
+                            "mehrotra_fleet": mlaunches,
+                            "lbfgs_dense": lbfgs["launches"],
+                            "cli": facade["launches"]},
         "ldlt_factor_small_timings": {
             str(n): {"ms": t["factor"], "device_ms": t["factor_device"][0],
                      "kernel_launches_per_call": t["factor_device"][2],
@@ -903,7 +1073,8 @@ def main() -> int:
                      "library_batch": t["solve_library_b"],
                      "bound_ms": t["solve_bound"][0]}
             for n, t in times.items() if "solve" in t},
-        "fleet": fleet, "kkt_4352": kkt, "dense_nlp": dense}
+        "fleet": fleet, "kkt_4352": kkt, "dense_nlp": dense,
+        "mehrotra_fleet": mehrotra, "lbfgs_dense": lbfgs, "cli": facade}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -9,22 +9,32 @@ for KKT systems above 128, the panel LDL^T of the blocked factorization
 Imports torch and never jax.
 
 Public API:
+  - `IPM` — the reference's class facade (``python -m pyipm_tpu_torch``
+    drives it on the ten example problems).
+  - `REFERENCE_PROBLEMS`, `get_problem` — those ten problems.
   - `IPMConfig` — solver hyperparameters (same fields as pyipm_tpu's).
   - `Problem`, `make_problem` — per-instance callables ``(x, p)``.
   - `make_solver`, `solve` — batch-first solver; single-instance solve.
   - `solve_batch`, `make_batch_solver` — lockstep fleet solve.
 """
 
+from pyipm_tpu_torch.api import IPM
 from pyipm_tpu_torch.config import IPMConfig
 from pyipm_tpu_torch.core.problem import Problem, make_problem
 from pyipm_tpu_torch.core.solver import (
     SolverResult, SolverState, make_solver, solve,
+)
+from pyipm_tpu_torch.models.reference_problems import (
+    REFERENCE_PROBLEMS, get_problem,
 )
 from pyipm_tpu_torch.parallel.batch import make_batch_solver, solve_batch
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "IPM",
+    "REFERENCE_PROBLEMS",
+    "get_problem",
     "IPMConfig",
     "Problem",
     "make_problem",

@@ -137,6 +137,23 @@ class IPMConfig:
         eps = self.eps
         return eps if eps < 1e-12 else float(eps ** 0.75)
 
+    @property
+    def zeta0(self) -> float:
+        """Initial L-BFGS Hessian scaling (pyipm.py:356-359)."""
+        return self.lbfgs_zeta if self.lbfgs_zeta is not None else 1.0
+
+    @property
+    def lbfgs_mem(self) -> int:
+        """L-BFGS storage width: the reference FIFO-shifts only once it
+        holds more than ``lbfgs`` pairs (pyipm.py:1300), so lbfgs + 1."""
+        return self.lbfgs + 1 if self.lbfgs else 0
+
+    @property
+    def lbfgs_fail_max(self) -> int:
+        """Consecutive curvature failures before a memory reset
+        (pyipm.py:360)."""
+        return self.lbfgs
+
     def replace(self, **kw) -> "IPMConfig":
         return dataclasses.replace(self, **kw)
 

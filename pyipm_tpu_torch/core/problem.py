@@ -105,18 +105,24 @@ class Problem:
         return vmap(grad(self._f1))(x, p)
 
     def jac_ce(self, x, p):
-        """TRANSPOSED equality Jacobian, (B, D, M)."""
+        """TRANSPOSED equality Jacobian, (B, D, M), in x's dtype (forward
+        mode of a 0-dim result minus a Python float comes out float64 for
+        float32 x)."""
         if self.dce is not None:
-            return vmap(lambda x_, p_: torch.reshape(
+            J = vmap(lambda x_, p_: torch.reshape(
                 self.dce(x_, p_), (self.nvar, self.neq)))(x, p)
-        return vmap(jacfwd(self._ce1))(x, p).transpose(1, 2)
+        else:
+            J = vmap(jacfwd(self._ce1))(x, p).transpose(1, 2)
+        return J.to(x.dtype)
 
     def jac_ci(self, x, p):
-        """TRANSPOSED inequality Jacobian, (B, D, N)."""
+        """TRANSPOSED inequality Jacobian, (B, D, N), in x's dtype."""
         if self.dci is not None:
-            return vmap(lambda x_, p_: torch.reshape(
+            J = vmap(lambda x_, p_: torch.reshape(
                 self.dci(x_, p_), (self.nvar, self.nineq)))(x, p)
-        return vmap(jacfwd(self._ci1))(x, p).transpose(1, 2)
+        else:
+            J = vmap(jacfwd(self._ci1))(x, p).transpose(1, 2)
+        return J.to(x.dtype)
 
     # ------------------------------------------------------------------
     # second derivatives

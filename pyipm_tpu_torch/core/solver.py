@@ -16,7 +16,9 @@ advances every still-running instance by one flat step at a time:
 Each ``lax.cond`` becomes a masked ``torch.where`` merge, and the costly
 branch (one primal-dual iteration) runs on the gathered subset of
 instances that take it.  Per instance the result is that of a single JAX
-solve; a single solve is a batch of one.
+solve; a single solve is a batch of one, and only it prints the JAX
+solver's progress lines (``verbosity > 0``), at the cost of a host sync per
+line; a fleet prints nothing.
 
 Signals: 0 running | 1 Ktol converged | 2 Ftol converged | -1 max
 iterations | -2 unreliable search direction | -3 non-finite iterate.
@@ -31,10 +33,15 @@ import torch
 from pyipm_tpu_torch import _sync
 from pyipm_tpu_torch.config import IPMConfig, matmul_precision
 from pyipm_tpu_torch.core import kkt as K
+from pyipm_tpu_torch.core.lbfgs import (
+    LBFGSState, lbfgs_direction, lbfgs_init, lbfgs_update,
+)
 from pyipm_tpu_torch.core.linesearch import max_step_ftb, search, take
 from pyipm_tpu_torch.core.problem import Problem
 from pyipm_tpu_torch.core.updates import centrality_mu, nu_threshold
-from pyipm_tpu_torch.ops.condensed import condensed_direction
+from pyipm_tpu_torch.ops.condensed import (
+    condensed_direction, condensed_direction_mehrotra,
+)
 from pyipm_tpu_torch.ops.linalg import reg_solve_kkt
 
 
@@ -58,6 +65,10 @@ class SolverState(NamedTuple):
     f_past: torch.Tensor       # last cost for the Ftol test
     alpha: torch.Tensor        # last accepted primal step length
     reg_retries: torch.Tensor  # int32 cumulative inertia-correction retries
+    # L-BFGS only (None in exact-Hessian mode, so the fleet carries none)
+    lbfgs: Optional[LBFGSState] = None
+    x_old: Optional[torch.Tensor] = None   # (B, D) previous iterate
+    g: Optional[torch.Tensor] = None       # (B, K) cached -grad
 
 
 class SolverResult(NamedTuple):
@@ -87,63 +98,123 @@ def _merge(st: SolverState, mask, **fields) -> SolverState:
                           for k, v in fields.items()})
 
 
+def _tree(fn, *trees):
+    """``fn`` over the tensors of (nested) NamedTuples; None stays None."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return type(first)(*(_tree(fn, *parts) for parts in zip(*trees)))
+    return fn(*trees)
+
+
+def _rows(st: SolverState, ids) -> SolverState:
+    return _tree(lambda t: t[ids], st)
+
+
 def _put(st: SolverState, ids, sub: SolverState) -> SolverState:
-    return SolverState(*(t.index_copy(0, ids, u) for t, u in zip(st, sub)))
+    return _tree(lambda t, u: t.index_copy(0, ids, u), st, sub)
 
 
 def _check_supported(cfg: IPMConfig, nineq: int) -> IPMConfig:
     cfg = cfg.resolve_mu_strategy(nineq)
-    if cfg.lbfgs:
-        raise NotImplementedError(
-            "lbfgs > 0: the L-BFGS direction is ROADMAP Slice C (item 14), "
-            "not ported yet")
-    if cfg.mu_strategy == "mehrotra":
-        raise NotImplementedError(
-            "mu_strategy resolving to 'mehrotra': the predictor-corrector "
-            "direction is deferred (ROADMAP Slice A item 5, "
-            "condensed_direction_mehrotra)")
-    if cfg.linear_solver == "lu":
-        raise NotImplementedError(
-            "linear_solver='lu': the eigendecomposition parity path "
-            "(_reg_solve_eigh) is not ported yet; use 'condensed' or "
-            "'ldlt'")
     if cfg.trace_metrics:
         raise NotImplementedError(
-            "trace_metrics: per-iteration histories are ROADMAP Slice C "
-            "(item 16, observability), not ported yet")
+            "trace_metrics: per-iteration histories are ROADMAP Queue 1 "
+            "item 10 (observability), not ported yet")
     return cfg
 
 
 class BatchSolver:
     """Batch-first solver for one :class:`Problem` and configuration.
 
-    ``solver(x0, params=(), s0=None, lda0=None) -> SolverResult`` solves
-    the (B, D) batch ``x0``; ``params`` holds the per-instance data the
-    problem's callables read, each with a leading B axis.  Flat steps and
-    host syncs are counted in ``pyipm_tpu_torch._sync.COUNTS``."""
+    ``solver(x0, params=(), s0=None, lda0=None, mu0=None, nu0=None) ->
+    SolverResult`` solves the (B, D) batch ``x0``; ``params`` holds the
+    per-instance data the problem's callables read, each with a leading B
+    axis (see :meth:`init_state` for the warm starts).  Flat steps and
+    host syncs are counted in ``pyipm_tpu_torch._sync.COUNTS``.
 
-    def __init__(self, problem: Problem, config: Optional[IPMConfig] = None):
+    ``echo`` prints the JAX solver's progress lines at the configured
+    verbosity; it is for a solve of ONE instance (:func:`solve`)."""
+
+    def __init__(self, problem: Problem, config: Optional[IPMConfig] = None,
+                 echo: bool = False):
         cfg = config if config is not None else IPMConfig()
         self.problem = problem
         self.config = _check_supported(cfg, problem.nineq)
+        self.echo = echo and self.config.verbosity > 0
 
     # ------------------------------------------------------------------
     def direction(self, st: SolverState, p):
-        """Newton direction and the new delta (reference pyipm.py:
-        1717-1721): the slack-eliminated condensed system by default, the
-        full (D+2N+M)^2 KKT matrix with ``linear_solver='ldlt'`` (JAX
-        solver.py:318-329).  Returns (dz, delta_new, retries)."""
+        """Newton direction (reference pyipm.py:1717-1721; JAX
+        solver.py:284-329): the slack-eliminated condensed system by
+        default, its Mehrotra predictor-corrector under
+        ``mu_strategy='mehrotra'`` (which also sets each instance's mu),
+        the full (D+2N+M)^2 KKT matrix with ``linear_solver='ldlt'`` or
+        ``'lu'``.  Returns (dz, st) with delta and the retries updated."""
         problem, cfg = self.problem, self.config
         if cfg.linear_solver == "condensed":
-            return condensed_direction(problem, cfg, st.x, st.s, st.lda,
-                                       st.mu, st.delta, p)
-        g = -K.grad(problem, st.x, st.s, st.lda, st.mu, p)
-        H = K.kkt_matrix(problem, st.x, st.s, st.lda, st.mu, p)
-        return reg_solve_kkt(
-            H, g, st.delta, st.mu, nvar=problem.nvar, neq=problem.neq,
-            nineq=problem.nineq, eps=cfg.eps, reg_coef=cfg.reg_coef,
-            eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0,
-            max_retries=cfg.max_reg_retries, block=cfg.ldlt_block)
+            if cfg.mu_strategy == "mehrotra" and problem.nineq:
+                dz, mu_new, delta_new, retries = condensed_direction_mehrotra(
+                    problem, cfg, st.x, st.s, st.lda, st.mu, st.delta,
+                    cfg.mu_floor, p)
+                st = st._replace(mu=mu_new)
+            else:
+                dz, delta_new, retries = condensed_direction(
+                    problem, cfg, st.x, st.s, st.lda, st.mu, st.delta, p)
+        else:
+            g = -K.grad(problem, st.x, st.s, st.lda, st.mu, p)
+            H = K.kkt_matrix(problem, st.x, st.s, st.lda, st.mu, p)
+            dz, delta_new, retries = reg_solve_kkt(
+                H, g, st.delta, st.mu, nvar=problem.nvar, neq=problem.neq,
+                nineq=problem.nineq, eps=cfg.eps, reg_coef=cfg.reg_coef,
+                eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0,
+                max_retries=cfg.max_reg_retries, block=cfg.ldlt_block,
+                method=cfg.linear_solver)
+        return dz, st._replace(delta=delta_new,
+                               reg_retries=st.reg_retries + retries)
+
+    def direction_lbfgs(self, st: SolverState, p):
+        """Memory update and the compact direction (reference pyipm.py:
+        1702-1713).  The update is skipped only on the very first inner
+        iteration of the solve (the reference's ``inner > 0 or outer > 0``
+        gate, pyipm.py:1705): it is computed for every instance and kept
+        where that gate holds."""
+        problem, cfg = self.problem, self.config
+        D = problem.nvar
+        not_first = (st.outer > 0) | (st.inner > 0)
+        g_old = -K.grad(problem, st.x_old, st.s, st.lda, st.mu, p)
+        g_new = -K.grad(problem, st.x, st.s, st.lda, st.mu, p)
+        mem = lbfgs_update(
+            st.lbfgs, st.x - st.x_old, g_old[:, :D] - g_new[:, :D],
+            constrained=problem.ncon > 0, eps=cfg.eps, zeta0=cfg.zeta0,
+            fail_max=cfg.lbfgs_fail_max)
+        if (self.echo and cfg.verbosity > 2 and bool(not_first[0])
+                and int(mem.count[0]) == 0 < int(st.lbfgs.count[0])):
+            # a count that falls to 0 is a reset (pyipm.py:1366-1367)
+            print("Max failures reached, resetting storage arrays.")
+        st = st._replace(
+            lbfgs=_tree(lambda a, b: _where(not_first, a, b), mem, st.lbfgs),
+            x_old=_where(not_first, st.x, st.x_old),
+            g=_where(not_first, g_new, st.g))
+        dz = lbfgs_direction(problem, cfg, st.lbfgs, st.x, st.s, st.lda,
+                             st.g, st.mu, p)
+        return dz, st
+
+    def _print_iteration(self, st: SolverState, p):
+        """The JAX solver's per-iteration lines (solver.py:362-371) for a
+        batch of one."""
+        problem, cfg = self.problem, self.config
+        if problem.nineq:
+            print(f"* INNER ITERATION {int(st.inner[0]) + 1}")
+        else:
+            print(f"ITERATION {int(st.iter_count[0]) + 1}")
+        if cfg.verbosity > 1:
+            print(f"f(x) = {problem.f_val(st.x, p)[0].cpu().numpy()}")
+        if cfg.verbosity > 2:
+            k = st.kkt[0].cpu().numpy()
+            print(f"|dL/dx| = {k[0]}, |dL/ds| = {k[1]}, |ce| = {k[2]}, "
+                  f"|ci-s| = {k[3]}")
 
     def inner_iter(self, st: SolverState, p) -> SolverState:
         """One primal-dual iteration for every instance of ``st`` (the
@@ -152,10 +223,13 @@ class BatchSolver:
         D, M, N = problem.nvar, problem.neq, problem.nineq
         dtype = st.x.dtype
         tiny = torch.finfo(dtype).tiny
+        if self.echo:
+            self._print_iteration(st, p)
 
-        dz, delta_new, retries = self.direction(st, p)
-        st = st._replace(delta=delta_new,
-                         reg_retries=st.reg_retries + retries)
+        if cfg.lbfgs:
+            dz, st = self.direction_lbfgs(st, p)
+        else:
+            dz, st = self.direction(st, p)
 
         if problem.ncon:
             # multiplier sign flip (pyipm.py:1723-1725) and merit penalty
@@ -180,6 +254,12 @@ class BatchSolver:
 
         res = search(problem, cfg, st.x, st.s, st.lda, dz, a_s, a_l,
                      st.mu, st.nu, st.signal, p)
+        if self.echo and cfg.verbosity > 2:
+            # line-search notices (reference pyipm.py:1485-1487, 1496-1500)
+            if bool(res.soc[0]):
+                print("Second-order feasibility correction accepted")
+            if int(res.signal[0]) == -2:
+                print("Search direction is unreliable to machine precision.")
         st = st._replace(x=res.x, s=res.s, lda=res.lda, signal=res.signal,
                          alpha=res.alpha, iter_count=st.iter_count + 1)
         st = st._replace(kkt=K.kkt_norms(problem, st.x, st.s, st.lda,
@@ -193,6 +273,9 @@ class BatchSolver:
             st = st._replace(signal=torch.where(
                 (st.signal >= 0) & ~finite,
                 torch.full_like(st.signal, -3), st.signal))
+            if (self.echo and cfg.verbosity > 2
+                    and int(st.signal[0]) == -3):
+                print("Non-finite iterate detected; terminating.")
 
         if cfg.Ftol is not None and N == 0:
             # per-iteration Ftol test, unconstrained/eq-only
@@ -222,8 +305,9 @@ class BatchSolver:
         st = st._replace(signal=torch.where(
             ep & (st.signal == 0) & is_last,
             torch.full_like(st.signal, -1), st.signal))
-        if N:
-            # adaptive centrality barrier update (pyipm.py:1804-1814)
+        if N and cfg.mu_strategy != "mehrotra":
+            # adaptive centrality barrier update (pyipm.py:1804-1814); under
+            # 'mehrotra' mu moves every iteration inside the direction
             sli = st.s * st.lda[:, M:]
             mu_new = centrality_mu(torch.sum(sli, dim=-1),
                                    torch.amin(sli, dim=-1), N, cfg.eps,
@@ -248,6 +332,8 @@ class BatchSolver:
         st = _merge(st, enter, inner=torch.zeros_like(st.inner),
                     inner_done=torch.zeros_like(st.inner_done),
                     in_inner=torch.ones_like(st.in_inner))
+        if self.echo and problem.nineq and bool(enter[0]):
+            print(f"OUTER ITERATION {int(st.outer[0]) + 1}")
 
         # one inner step (pyipm.py:1672-1682): muTol exit or an iteration
         active = (mi & (st.inner < cfg.miter) & (st.signal == 0)
@@ -260,8 +346,7 @@ class BatchSolver:
         st = _merge(st, stop, inner_done=torch.ones_like(st.inner_done))
         ids = _sync.indices(active & ~conv_in)
         if ids.numel():
-            sub = SolverState(*(t[ids] for t in st))
-            sub = self.inner_iter(sub, take(p, ids))
+            sub = self.inner_iter(_rows(st, ids), take(p, ids))
             st = _put(st, ids, sub._replace(inner=sub.inner + 1))
 
         done = mi & ((st.inner >= cfg.miter) | (st.signal != 0)
@@ -277,27 +362,44 @@ class BatchSolver:
             _sync.COUNTS["flat_steps"] += 1
 
     # ------------------------------------------------------------------
-    def init_state(self, x0, p=(), s0=None, lda0=None) -> SolverState:
-        """Initialization (reference pyipm.py:1596-1651)."""
+    def init_state(self, x0, p=(), s0=None, lda0=None, mu0=None,
+                   nu0=None) -> SolverState:
+        """Initialization (reference pyipm.py:1596-1651).
+
+        ``mu0``/``nu0`` (a number or a (B,) tensor) override the configured
+        initial barrier and penalty values, the explicit form of the
+        reference's warm start, where mu and nu keep their final values
+        across solves (pyipm.py:273-275, 363-364).  With N = 0 mu stays
+        pinned at Ktol (pyipm.py:1606)."""
         problem, cfg = self.problem, self.config
         D, M, N = problem.nvar, problem.neq, problem.nineq
         dtype = cfg.torch_dtype
+        if self.echo:
+            print("Searching for a feasible local minimizer using "
+                  + ("L-BFGS to approximate the Hessian." if cfg.lbfgs
+                     else "the exact Hessian."))
         x = x0.to(dtype).reshape(-1, D)
         B = x.shape[0]
-        full = lambda v: x.new_full((B,), v)      # noqa: E731
+
+        def full(v, given=None):
+            if given is None:
+                return x.new_full((B,), v)
+            return torch.as_tensor(given, dtype=dtype,
+                                   device=x.device).expand(B).clone()
+
         if N:
             s = (K.init_slack(problem, x, cfg.Ktol, p) if s0 is None
                  else s0.to(dtype).reshape(B, N))
-            mu0 = full(cfg.mu)
+            mu = full(cfg.mu, mu0)
         else:
             s = x.new_zeros((B, 0))
-            mu0 = full(cfg.Ktol)
+            mu = full(cfg.Ktol)
         if M + N:
             lda = (K.init_lambda(problem, x, cfg.Ktol, p) if lda0 is None
                    else lda0.to(dtype).reshape(B, M + N))
         else:
             lda = x.new_zeros((B, 0))
-        kkt0 = K.kkt_norms(problem, x, s, lda, mu0, p)
+        kkt0 = K.kkt_norms(problem, x, s, lda, mu, p)
         f_past = (problem.f_val(x, p) if cfg.Ftol is not None
                   else x.new_zeros((B,)))
         def i32():
@@ -306,11 +408,17 @@ class BatchSolver:
         def no():
             return torch.zeros((B,), dtype=torch.bool, device=x.device)
 
+        lbfgs = {}
+        if cfg.lbfgs:
+            lbfgs = dict(
+                lbfgs=lbfgs_init(B, D, cfg.lbfgs_mem, cfg.zeta0, dtype,
+                                 x.device),
+                x_old=x, g=-K.grad(problem, x, s, lda, mu, p))
         return SolverState(
-            x=x, s=s, lda=lda, mu=mu0, nu=full(cfg.nu), delta=full(0.0),
-            kkt=kkt0, signal=i32(), iter_count=i32(), outer=i32(),
-            inner=i32(), inner_done=no(), in_inner=no(), f_past=f_past,
-            alpha=full(0.0), reg_retries=i32())
+            x=x, s=s, lda=lda, mu=mu, nu=full(cfg.nu, nu0),
+            delta=full(0.0), kkt=kkt0, signal=i32(), iter_count=i32(),
+            outer=i32(), inner=i32(), inner_done=no(), in_inner=no(),
+            f_past=f_past, alpha=full(0.0), reg_retries=i32(), **lbfgs)
 
     def finalize(self, st: SolverState, p=()) -> SolverResult:
         return SolverResult(
@@ -319,9 +427,10 @@ class BatchSolver:
             outer=st.outer, inner=st.inner, mu=st.mu, nu=st.nu,
             delta=st.delta, reg_retries=st.reg_retries)
 
-    def __call__(self, x0, params=(), s0=None, lda0=None) -> SolverResult:
+    def __call__(self, x0, params=(), s0=None, lda0=None, mu0=None,
+                 nu0=None) -> SolverResult:
         with torch.no_grad(), matmul_precision(self.config.matmul_precision):
-            st = self.init_state(x0, params, s0, lda0)
+            st = self.init_state(x0, params, s0, lda0, mu0, nu0)
             return self.finalize(self.run(st, params), params)
 
 
@@ -332,14 +441,16 @@ def make_solver(problem: Problem,
 
 
 def solve(problem: Problem, x0, config: Optional[IPMConfig] = None,
-          s0=None, lda0=None, params=()) -> SolverResult:
+          s0=None, lda0=None, params=(), mu0=None,
+          nu0=None) -> SolverResult:
     """Solve ONE instance: ``x0`` (D,), ``params`` that instance's data.
-    Runs as a batch of one and returns unbatched fields."""
+    Runs as a batch of one, prints the JAX solver's progress lines at
+    ``verbosity > 0``, and returns unbatched fields."""
     p1 = tuple(t.unsqueeze(0) for t in params)
     if hasattr(params, "_fields"):
         p1 = type(params)(*p1)
-    res = make_solver(problem, config)(
+    res = BatchSolver(problem, config, echo=True)(
         x0.reshape(1, -1), p1,
         None if s0 is None else s0.reshape(1, -1),
-        None if lda0 is None else lda0.reshape(1, -1))
+        None if lda0 is None else lda0.reshape(1, -1), mu0, nu0)
     return SolverResult(*(t[0] for t in res))

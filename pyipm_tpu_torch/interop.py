@@ -9,11 +9,16 @@ on a chosen device, and turns the port's results back into numpy.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pyipm_tpu_torch.config import IPMConfig
+from pyipm_tpu_torch.core.lbfgs import LBFGSState
 from pyipm_tpu_torch.core.solver import SolverResult
 from pyipm_tpu_torch.models.random_nlp import (
-    DenseNLPData, QPData, dense_nlp_data, qp_data,
+    DenseNLPData, QPData, dense_nlp_data, qp_data, resolve_device,
+)
+from pyipm_tpu_torch.models.reference_problems import (
+    REFERENCE_PROBLEMS, ReferenceProblem,
 )
 
 
@@ -46,3 +51,34 @@ def config_from_dict(d: dict) -> IPMConfig:
 def result_to_numpy(res: SolverResult) -> dict:
     """A SolverResult as a dict of numpy arrays, keyed by field name."""
     return {k: v.detach().cpu().numpy() for k, v in res._asdict().items()}
+
+
+def lbfgs_state_from_numpy(state, device=None, dtype=None) -> LBFGSState:
+    """An L-BFGS memory (the JAX package's ``LBFGSState`` of one instance,
+    S (D, m), or of a batch, S (B, D, m), or a dict keyed by field name)
+    as the port's batch-first LBFGSState on ``device`` (the card when
+    None): zeta, S and Y in ``dtype`` (theirs when None), count and fail
+    int32."""
+    arr = _as_arrays(state, LBFGSState._fields)
+    if arr["S"].ndim == 2:
+        arr = {k: v[None] for k, v in arr.items()}
+    dev = resolve_device(device)
+
+    def t(k, dt):
+        return torch.tensor(arr[k], device=dev, dtype=dt)
+
+    fdt = dtype if dtype is not None else t("S", None).dtype
+    return LBFGSState(zeta=t("zeta", fdt).reshape(-1), S=t("S", fdt),
+                      Y=t("Y", fdt), count=t("count", torch.int32).reshape(-1),
+                      fail=t("fail", torch.int32).reshape(-1))
+
+
+def reference_problem(key) -> ReferenceProblem:
+    """The port's reference problem for a number (1 to 10) or for the JAX
+    package's spec of it (matched by name)."""
+    if isinstance(key, int):
+        return REFERENCE_PROBLEMS[key]
+    for spec in REFERENCE_PROBLEMS.values():
+        if spec.name == key.name:
+            return spec
+    raise KeyError(f"no reference problem named {key.name!r}")

@@ -54,14 +54,13 @@ def sample_qp_arrays(seed: int, B: int, D: int, nlin: int = 4,
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device``, or the card when it is None; raises when None is given
-    and no CUDA device exists (the port never falls back quietly)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device``, or the card when it is None; raises when the result is
+    a CUDA device and none exists (the port never falls back quietly)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to place the "
                            "data on the CPU")
-    return torch.device("cuda")
+    return dev
 
 
 def _tensors(cls, arrays: dict, device, dtype):

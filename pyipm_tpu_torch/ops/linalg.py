@@ -480,11 +480,70 @@ def _reg_solve_large(H, g, delta, mu, *, nvar, neq, nineq, eps, reg_coef,
     return dz, delta_new, retries, apply_factors, (d_gate, eq_applied)
 
 
+def _reg_solve_eigh(H, g, delta, mu, *, nvar, neq, nineq, eps, reg_coef,
+                    eta, beta, delta0, max_retries):
+    """The reference's own flow (JAX ``_reg_solve_eigh``, linalg.py:
+    793-841): inertia from the eigenvalues of H, the eq-block shift where
+    H is ill-conditioned, delta escalated x10 while the inertia is wrong,
+    then a dense LU solve.  Only the instances with bad inertia or
+    conditioning loop."""
+    D, M, N = nvar, neq, nineq
+    B, K, _ = H.shape
+    dev = H.device
+    target = M + N
+    idx = torch.arange(K, device=dev)
+    ex = (idx < D).to(H.dtype)
+    eeq = ((idx >= D + N) & (idx < D + N + M)).to(H.dtype)
+    eps_t = _scalar(eps, H)
+    delta0_t = _scalar(delta0, H)
+    tiny = _tiny(H.dtype)
+
+    def inertia(Hm):
+        w = torch.linalg.eigvalsh(Hm)
+        aw = torch.abs(w)
+        rcond = (torch.amin(aw, dim=-1)
+                 / torch.clamp(torch.amax(aw, dim=-1), min=tiny))
+        return rcond, torch.sum(w < -eps_t, dim=-1)
+
+    rcond0, neg0 = inertia(H)
+    bad = (rcond0 <= eps_t) | (neg0 != target)
+    Hf = H.clone()
+    delta_new = delta.clone()
+    retries = torch.zeros((B,), dtype=torch.int32, device=dev)
+    ids = _sync.indices(bad)
+    if ids.numel():
+        Hb = H[ids]
+        # the eq-block shift where H is ill-conditioned; ex and eeq are
+        # disjoint, so one diagonal update per trial is JAX's two adds
+        eq = torch.zeros_like(rcond0[ids])
+        if M:
+            eq = torch.where(rcond0[ids] <= eps_t,
+                             _eq_reg_term(mu[ids], reg_coef, eta, beta), eq)
+        dl = delta[ids]
+        dlt = torch.where(dl == 0, delta0_t, torch.clamp(dl / 2, min=delta0))
+        t = torch.zeros_like(retries[ids])
+        neg = inertia(_shifted(Hb, dlt, ex, eq, eeq))[1]
+        # escalation (linalg.py:818-827): only the instances still looping
+        while True:
+            loop = _sync.indices((neg != target) & (t < max_retries))
+            if loop.numel() == 0:
+                break
+            dlt[loop] = dlt[loop] * 10.0
+            t[loop] += 1
+            neg[loop] = inertia(_shifted(Hb[loop], dlt[loop], ex, eq[loop],
+                                         eeq))[1]
+        Hf[ids] = _shifted(Hb, dlt, ex, eq, eeq)
+        delta_new[ids] = dlt
+        retries[ids] = t
+    dz = torch.linalg.solve(Hf, g.unsqueeze(-1)).squeeze(-1)
+    return dz, delta_new, retries
+
+
 def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
                   eps: float, reg_coef: float, eta: float, beta: float,
                   delta0: float, max_retries: int = 40,
                   want_solver: bool = False, block: int = 128,
-                  group: int = 8, ir_steps: int = 1):
+                  group: int = 8, ir_steps: int = 1, method: str = "ldlt"):
     """Regularize each H for correct inertia and solve H dz = g
     (reference ``reghess``, pyipm.py:1373-1406; JAX ``_reg_solve_ldlt``,
     linalg.py:862-1179).
@@ -494,9 +553,19 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
     solving further (B, K) right-hand sides against the final factors and
     the applied shifts (delta_applied, eq_applied), each (B,).  K > 128
     takes the blocked path (``block``, ``group``, ``ir_steps``), one
-    instance at a time.
+    instance at a time.  ``method='lu'`` takes the reference's
+    eigenvalue-inertia flow and an LU solve instead (no ``want_solver``).
     """
     B, K, _ = H.shape
+    if method == "lu":
+        if want_solver:
+            raise ValueError("method='lu' keeps no factors (want_solver)")
+        return _reg_solve_eigh(
+            H, g, delta, mu, nvar=nvar, neq=neq, nineq=nineq, eps=eps,
+            reg_coef=reg_coef, eta=eta, beta=beta, delta0=delta0,
+            max_retries=max_retries)
+    if method != "ldlt":
+        raise ValueError(f"unknown method {method!r}")
     if K > SMALL_K:
         outs = [_reg_solve_large(
             H[i], g[i], delta[i], mu[i], nvar=nvar, neq=neq, nineq=nineq,

@@ -2,10 +2,13 @@
 
     python scripts/profile_fleet.py [--trace-dir DIR] [--root DIR]
                                     [--save FILE.npz] [--compare FILE.npz]
+                                    [--mu-strategy adaptive|mehrotra]
 
 The fleet is the one ``chip_smoke.py`` solves on the card (its ``SEED``,
 ``B``, ``D``, ``NLIN`` constants: 10,000 random QPs, D = 16, float32,
-Ktol = 1e-4, x0 = 1e-6 N(0, 1) from numpy seed 7).  A warm-up solve from 0,
+Ktol = 1e-4, x0 = 1e-6 N(0, 1) from numpy seed 7), with the 'adaptive'
+barrier or, by ``--mu-strategy``, the Mehrotra predictor-corrector.  A
+warm-up solve from 0,
 three unprofiled solves from x0 (their walls), then the same solve under
 ``torch.profiler`` (CPU and CUDA activities).  Prints the walls, the hit
 rate and mean iterations, the device's busy time and idle share, kernel
@@ -49,6 +52,8 @@ def main():
     ap.add_argument("--root", default=None)
     ap.add_argument("--save", default=None)
     ap.add_argument("--compare", default=None)
+    ap.add_argument("--mu-strategy", default="adaptive",
+                    choices=("adaptive", "mehrotra"))
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -82,8 +87,10 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}", flush=True)
-    cfg = IPMConfig(float_dtype="float32", verbosity=0, Ktol=1e-4)
+    print(f"card: {smi}; torch {torch.__version__}; mu_strategy "
+          f"{args.mu_strategy}", flush=True)
+    cfg = IPMConfig(float_dtype="float32", verbosity=0, Ktol=1e-4,
+                    mu_strategy=args.mu_strategy)
     problem = make_qp_problem(D, NLIN)
     data = sample_qp_batch(SEED, B, D, NLIN, dtype="float32", device=dev)
     solve_batch(problem, torch.zeros((B, D), device=dev), cfg, params=data)

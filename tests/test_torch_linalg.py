@@ -151,6 +151,45 @@ def test_healthy_and_escalating_systems(dtype, want_solver):
 ADVERSARIAL = [("float64", 1e-8), ("float64", 1e-12), ("float32", 1e-5)]
 
 
+def test_lu_method_matches_jax():
+    """``method='lu'`` (JAX ``_reg_solve_eigh``, the reference's flow) on a
+    batch taking every path: kept, escalated from a cold and from a warm
+    delta, and a rank-deficient Je whose rcond <= eps adds the eq-block
+    shift.  delta_new and retries exactly as the JAX package's; dz to 1e-10
+    relative, except where the shifted matrix is ill-conditioned by design
+    (the shift is ~1e-12), held there to 10 n eps cond."""
+    D, M = 6, 3
+    rng = np.random.default_rng(4)
+    Hs = [_saddle(rng, D, M, k) for k in (0, 2, 4, 0)]
+    Hs[3][:D, D + 2] = Hs[3][:D, D]           # a repeated Je column
+    Hs[3][D + 2, :D] = Hs[3][D, :D]
+    Hs = np.stack(Hs)
+    gs = rng.standard_normal((4, D + M))
+    deltas = np.array([0.0, 0.0, 1e-3, 0.0])
+    mus = np.full(4, 0.1)
+    cfg = JCfg()
+    kw = dict(nvar=D, neq=M, nineq=0, eps=cfg.eps, reg_coef=cfg.reg_coef,
+              eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0, max_retries=40)
+    jax_one = jax.jit(lambda *a: j_reg(*a, method="lu", **kw))
+    T = (lambda a: torch.as_tensor(np.asarray(a)))
+    got = t_reg(T(Hs), T(gs), T(deltas), T(mus), method="lu", **kw)
+    retries = []
+    for i, args in enumerate(zip(Hs, gs, deltas, mus)):
+        want = [np.asarray(o) for o in jax_one(*(jnp.asarray(a)
+                                                 for a in args))]
+        assert int(got[2][i]) == int(want[2])
+        np.testing.assert_allclose(float(got[1][i]), want[1], rtol=1e-14)
+        H = Hs[i] + float(want[1]) * np.diag((np.arange(D + M) < D) * 1.0)
+        rtol = max(1e-10, 10 * (D + M) * cfg.eps * np.linalg.cond(H))
+        np.testing.assert_allclose(got[0][i].numpy(), want[0], rtol=0,
+                                   atol=rtol * np.abs(want[0]).max())
+        retries.append(int(want[2]))
+    assert retries[0] == 0 and max(retries) > 0
+    with pytest.raises(ValueError, match="want_solver"):
+        t_reg(T(Hs), T(gs), T(deltas), T(mus), method="lu",
+              want_solver=True, **kw)
+
+
 def _adversarial_batch(dtype, piv):
     A, g, nneg = _adversarial(piv)
     S, gs_, _ = _stable(n=64, nneg=nneg, seed=4)

@@ -108,10 +108,6 @@ def test_example7_transcript_pin():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(lbfgs=4), "L-BFGS"),
-    (dict(mu_strategy="mehrotra"), "mehrotra"),
-    (dict(mu_strategy="auto"), "mehrotra"),
-    (dict(linear_solver="lu"), "lu"),
     (dict(trace_metrics=True), "trace_metrics"),
 ])
 def test_unported_options_raise(kw, match):
@@ -136,7 +132,9 @@ def test_port_never_imports_jax():
             "pyipm_tpu_torch.models.random_nlp, "
             "pyipm_tpu_torch.models.reference_problems, "
             "pyipm_tpu_torch.ops.small_ldlt, pyipm_tpu_torch.ops._build, "
-            "pyipm_tpu_torch.ops.large_ldlt; "
+            "pyipm_tpu_torch.ops.large_ldlt, pyipm_tpu_torch.api, "
+            "pyipm_tpu_torch.cli, pyipm_tpu_torch.core.lbfgs, "
+            "pyipm_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'pyipm_tpu.')) "
             "or m == 'pyipm_tpu']; "
@@ -192,28 +190,17 @@ def test_shifted_gradient_override_matches_jax():
     assert jspec.distance_to_truth(np.asarray(jr.x)) > 1e-3
 
 
-_UNCONSTRAINED_AND_EQ = {
-    # reference problems 1 (unconstrained) and 3 (equality only), written
-    # for the port; the JAX package's definitions are the reference
-    1: dict(f=lambda x, p: (x[0] ** 2 - 4 * x[0] + x[1] ** 2 - x[1]
-                            - x[0] * x[1])),
-    3: dict(f=lambda x, p: -torch.sum(x),
-            ce=lambda x, p: torch.sum(x ** 2) - 1.0),
-}
-
-
-@pytest.mark.parametrize("num", sorted(_UNCONSTRAINED_AND_EQ))
+@pytest.mark.parametrize("num", [1, 3])
 def test_unconstrained_and_equality_only_paths_match_jax(num):
     """The solver branches the QP fleet never takes (no constraints: the
     muTol exit is convergence; no inequalities: the per-iteration Ftol
-    test) give the JAX package's signal, iteration count and solution."""
-    from pyipm_tpu_torch import make_problem
-
+    test) give the JAX package's signal, iteration count and solution, on
+    reference problems 1 (unconstrained) and 3 (equality only)."""
     x0 = J_REF[num].sample_x0(np.random.default_rng(42))
     jr = j_make_solver(J_REF[num].make(), JCfg(Ftol=1e-8, verbosity=0))(
         jnp.asarray(x0))
-    tr = solve(make_problem(nvar=2, **_UNCONSTRAINED_AND_EQ[num]),
-               torch.as_tensor(x0), IPMConfig(Ftol=1e-8, verbosity=0))
+    tr = solve(T_REF[num].make(), torch.as_tensor(x0),
+               IPMConfig(Ftol=1e-8, verbosity=0))
     assert int(tr.signal) == int(jr.signal) and int(tr.signal) in (1, 2)
     assert int(tr.iter_count) == int(jr.iter_count)
     np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=0,
