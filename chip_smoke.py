@@ -12,8 +12,9 @@ Phases, each raising on failure:
      instances indefinite, repeatable over 20 calls, and on an unaligned
      batch slice; the solve at every lane layout (n = 1 to 128), with and
      without its row scale, bitwise repeatable, and against a
-     backward-error bound; both timed at (10000, 16) and (10000, 36), the
-     factor also at (512, 128);
+     backward-error bound; both also at phase 16's sizes (n = 40, 65,
+     67, 80, 96 and 97, B = 2,048); both timed at (10000, 16) and
+     (10000, 36), the factor also at (512, 128);
   4. slice A: the 10,000-QP float32 fleet through ``solve_batch`` on
      cuda:0, launch counters reset just before the timed solve;
   5. the same first 64 instances on CPU tensors (the plain path) against
@@ -34,14 +35,40 @@ Phases, each raising on failure:
  11. L-BFGS(8) on a D = 4096, M = 8 dense NLP in float64 through ``solve``;
  12. the ``IPM`` facade through the CLI's ``main`` on the ten reference
      problems (exact Hessian, L-BFGS, 'lu', float32), and
-     ``python -m pyipm_tpu_torch`` once as a process.
+     ``python -m pyipm_tpu_torch`` once as a process;
+ 13. phase 4's fleet through ``make_wave_batch_solver`` (first wave 16,
+     waves of 32; and waves of 4, which compact), held per instance to
+     phase 4's lockstep result (the JAX package's wave contract; the
+     bitwise-equal count printed);
+ 14. the same fleet paused by ``run_budget(3)``, saved with ``save_state``,
+     restored onto the card and finished by ``run``: signals and iteration
+     counts equal to phase 4's everywhere, x within 1e-5;
+ 15. the fleet at niter 2, miter 3 (every instance fails), and at niter
+     3, miter 5 (about half converge), then ``rescue_failures``: hit rate
+     >= 0.99 after, converged instances bit for bit;
+ 16. a mixed fleet through ``solve_fleet`` in float32: 2,048 portfolios of
+     64 assets, SVM duals of 96 points, maximum-entropy problems of 64
+     states and 2 moments, MPCs (nx 4, nu 2, horizon 20), 512 box QPs of
+     D = 16, each bucket alone and then all with reference problem 5 in
+     one call; per bucket the hit rate, iterations, wall, kernel 1-2
+     launches by n and the structural checks of the JAX package's
+     test_applications.py (a bucket under 0.99 is run again in float64);
+ 17. ``profile_solve`` of phase 13's wave fleet, ``trace()`` around a
+     fleet solve with all six phase scopes in the trace, ``trace_metrics``
+     on the fleet (unchanged to the bit, its history's bytes, instance 0's
+     report), and ``python -m pyipm_tpu_torch 7 --profile DIR``;
+ 18. kernels 1-2 against their plain versions, as in phase 3, at every
+     size n that a run of phases 4-17 launched them at and phase 3 did
+     not check (phase 3 checks phase 16's sizes at its batch of 2,048).
 Each kernel is timed twice: ``ms``, CUDA events around one wrapper call
 (what the path sees, host enqueue included), and ``device_ms``, the
 kernel's own device time per launch from ``torch.profiler``, with the
 launches per call it saw (or, where the profiler shows none, CUDA events
-around 50 back-to-back calls; the record says which).  The line before the last is the kernels' JSON record, the
-one before it the card's name and power limit; the last line is the JSON
-result.  Needs one CUDA card and the repository checkout.
+around 50 back-to-back calls; the record says which).  The line before the
+last is the kernels' JSON record (with the launches of every path, and of
+kernels 1-2 by n), the one before it the card's name and power limit, and
+before that the total run time; the last line is the JSON result.  Needs
+one CUDA card and the repository checkout.
 """
 
 from __future__ import annotations
@@ -53,6 +80,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,6 +89,12 @@ import torch
 SEED, B, D, NLIN = 42, 10_000, 16, 4
 N_CROSS = 64
 KERNEL_SHAPES = ((10_000, 16), (10_000, 36), (129, 36), (1, 16), (512, 128))
+# the sizes phase 16's buckets give kernels 1-2 (the condensed systems of
+# MPC, portfolio, maximum entropy and SVM, n = 40, 65, 67 and 97; the SOC
+# normal matrices of maximum entropy and MPC, k = 67 and 80; and n = 96),
+# at the buckets' batch
+PATH_B = 2048
+PATH_SHAPES = tuple((PATH_B, n) for n in (40, 65, 67, 80, 96, 97))
 # the solve kernel's lane layouts (half-warps to n = 16, then 1 to 4 entries
 # per lane), at a batch that fills no CTA evenly; at the odd sizes from 69
 # a CTA holds one or two instances, so most CTAs' factors start off a
@@ -99,6 +133,17 @@ CLI_RUNS = ([[str(n)] for n in range(1, 11)]
             + [[str(n), "--linear-solver", "lu"] for n in (3, 7, 8, 10)]
             + [["7", "--f32"]])
 CLI_STOL = 1e-3
+# phases 13-17: the wave budgets, the pause of phase 14, and the mixed
+# fleet of phase 16 (portfolio and SVM of the JAX package's
+# applications.py at 64 assets and 96 points of 8 features, maximum
+# entropy over 64 states with 2 moments, MPC with nx = 4, nu = 2 over 20
+# steps, box QPs of the heterogeneous-fleet example at D = 16)
+WAVE_FIRST, WAVE, BUDGET = 16, 32, 3
+# the fleet converges inside a first wave of 16: waves of 4 make it compact
+WAVE_SMALL = 4
+MIXED = dict(portfolio=2048, svm=2048, maxent=2048, mpc=2048, box=512)
+PORTFOLIO_D, SVM_N, SVM_FEAT, MAXENT_D, MAXENT_M = 64, 96, 8, 64, 2
+MPC_NX, MPC_NU, MPC_T, BOX_D = 4, 2, 20, 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
@@ -216,8 +261,16 @@ def factor_timings(sl, A, plain_reps=10):
         factor_bound=factor_bound(A.shape[0], A.shape[-1]))
 
 
+# (kernel, n) pairs of kernels 1-2: those phase 3 held against the plain
+# version, and those the runs of phases 4-17 launched (folded in at each
+# reset of LAUNCHES_BY_N); phase 18 holds the difference
+HELD, SEEN = set(), set()
+
+
 def reset(*counters):
     for counts in counters:
+        SEEN.update(k for k, c in counts.items()
+                    if c and isinstance(k, tuple))
         for k in counts:
             counts[k] = 0
 
@@ -295,49 +348,59 @@ def check_solve(sl, L, d, b, x, xr, what):
     return c, widened
 
 
+def hold_small(sl, gen, Bn, n, dtype, device):
+    """Kernels 1-2 at (Bn, n) in ``dtype`` on random symmetric matrices
+    (rand_sym): the factor bitwise equal to its plain version and within
+    the backward-error bound of its reconstruction, the solve of the plain
+    factors held to its plain version by check_solve.  Returns the
+    factor's and the solve's max abs difference from the plain version."""
+    A = rand_sym(gen, Bn, n, dtype, device)
+    b = torch.randn(Bn, n, generator=gen,
+                    dtype=torch.float64).to(dtype).to(device)
+    L, d = sl.ldlt_factor_small(A)
+    Lr, dr = sl.ldlt_factor_small_ref(A)
+    x = sl.ldlt_solve_small(Lr, dr, b)
+    xr = sl.ldlt_solve_small_ref(Lr, dr, b)
+    torch.cuda.synchronize()
+    if not (same_bits(L, Lr) and same_bits(d, dr)):
+        raise AssertionError(f"factor differs from its plain version "
+                             f"at {(Bn, n)} {dtype}")
+    # reconstruction, against the backward-error bound of unpivoted
+    # LDL^T, which scales with |L||D||L^T| (= max|A| when no pivot
+    # is small; a few of 10,000 random instances have one)
+    Ld, dd = L.double(), d.double()
+    rec = (Ld * dd[:, None, :]) @ Ld.transpose(1, 2)
+    growth = (Ld.abs() * dd.abs()[:, None, :]) @ Ld.abs().transpose(1, 2)
+    scale = torch.maximum(A.double().abs().amax(dim=(1, 2)),
+                          growth.amax(dim=(1, 2)))
+    rec_tol = (5e-5 if dtype == torch.float32 else 1e-12) * n
+    rec_err = ((rec - A.double()).abs().amax(dim=(1, 2)) / scale).max()
+    if float(rec_err) > rec_tol:
+        raise AssertionError(f"reconstruction error {float(rec_err)} "
+                             f"> {rec_tol} at {(Bn, n)} {dtype}")
+    c, wide = check_solve(sl, Lr, dr, b, x, xr, f"{(Bn, n)} {dtype}")
+    HELD.update((("factor", n), ("solve", n)))
+    e_factor = max(float((L - Lr).abs().max()), float((d - dr).abs().max()))
+    e_solve = float((x - xr).abs().max())
+    print(f"  ok {str(dtype):14s} B={Bn:5d} n={n:3d}  "
+          f"max|d-dref|={float((d - dr).abs().max()):.3e}  "
+          f"max|x-xref|={e_solve:.3e}  "
+          f"backward error {c:.3f} of its bound, {wide} of {Bn} "
+          f"instances with a pivot under {PIVOT_FLOOR} held to the "
+          f"widened tolerance", flush=True)
+    return e_factor, e_solve
+
+
 def check_small_kernels(sl, device):
     """Phase 3; returns per-kernel error, timing and bound records."""
     gen = torch.Generator().manual_seed(SEED)
     err = {"factor": 0.0, "solve": 0.0}
     for dtype in (torch.float32, torch.float64):
-        for Bn, n in KERNEL_SHAPES:
-            A = rand_sym(gen, Bn, n, dtype, device)
-            b = torch.randn(Bn, n, generator=gen,
-                            dtype=torch.float64).to(dtype).to(device)
-            L, d = sl.ldlt_factor_small(A)
-            Lr, dr = sl.ldlt_factor_small_ref(A)
-            x = sl.ldlt_solve_small(Lr, dr, b)
-            xr = sl.ldlt_solve_small_ref(Lr, dr, b)
-            torch.cuda.synchronize()
-            if not (same_bits(L, Lr) and same_bits(d, dr)):
-                raise AssertionError(f"factor differs from its plain version "
-                                     f"at {(Bn, n)} {dtype}")
-            # reconstruction, against the backward-error bound of unpivoted
-            # LDL^T, which scales with |L||D||L^T| (= max|A| when no pivot
-            # is small; a few of 10,000 random instances have one)
-            Ld, dd = L.double(), d.double()
-            rec = (Ld * dd[:, None, :]) @ Ld.transpose(1, 2)
-            growth = (Ld.abs() * dd.abs()[:, None, :]) @ Ld.abs().transpose(1, 2)
-            scale = torch.maximum(A.double().abs().amax(dim=(1, 2)),
-                                  growth.amax(dim=(1, 2)))
-            rec_tol = (5e-5 if dtype == torch.float32 else 1e-12) * n
-            rec_err = ((rec - A.double()).abs().amax(dim=(1, 2)) / scale).max()
-            if float(rec_err) > rec_tol:
-                raise AssertionError(f"reconstruction error {float(rec_err)} "
-                                     f"> {rec_tol} at {(Bn, n)} {dtype}")
-            c, wide = check_solve(sl, Lr, dr, b, x, xr,
-                                  f"{(Bn, n)} {dtype}")
+        for Bn, n in KERNEL_SHAPES + PATH_SHAPES:
+            e_factor, e_solve = hold_small(sl, gen, Bn, n, dtype, device)
             if dtype == torch.float32 and (Bn, n) in TIMED_SHAPES:
-                err["factor"] = max(err["factor"],
-                                    float((L - Lr).abs().max()),
-                                    float((d - dr).abs().max()))
-                err["solve"] = max(err["solve"], float((x - xr).abs().max()))
-            print(f"  ok {str(dtype):14s} B={Bn:5d} n={n:3d}  "
-                  f"max|d-dref|={float((d - dr).abs().max()):.3e}  "
-                  f"max|x-xref|={float((x - xr).abs().max()):.3e}  "
-                  f"backward error {c:.3f} of its bound, {wide} of {Bn} "
-                  f"instances with a pivot under {PIVOT_FLOOR} held to the "
-                  f"widened tolerance", flush=True)
+                err["factor"] = max(err["factor"], e_factor)
+                err["solve"] = max(err["solve"], e_solve)
 
         # the solve at every lane layout, with and without the row scale
         worst, wide = 0.0, 0
@@ -368,6 +431,7 @@ def check_small_kernels(sl, device):
                     c, k = check_solve(sl, L, d, sc * b, x / sc, xr / sc,
                                        what)
                 worst, wide = max(worst, c), wide + k
+        HELD.update(("solve", n) for n in SOLVE_SIZES)
         print(f"  ok ldlt_solve_small {str(dtype):14s} B={SOLVE_B} "
               f"n={SOLVE_SIZES}, with and without scale: bitwise repeatable "
               f"over 20 calls, backward error <= {worst:.3f} of its bound "
@@ -395,6 +459,7 @@ def check_small_kernels(sl, device):
                 raise AssertionError(f"{what}: not bitwise repeatable")
             if not (same_bits(Ls, Lr[1:]) and same_bits(ds, dr[1:])):
                 raise AssertionError(f"{what}: the slice A[1:] differs")
+        HELD.update(("factor", n) for n in FACTOR_SIZES)
         print(f"  ok ldlt_factor_small {str(dtype):14s} n={FACTOR_SIZES}, "
               f"B={SOLVE_B} (203 above 36), half indefinite: bitwise equal to "
               f"the plain version, over {FACTOR_REPEATS} more calls, and on "
@@ -776,6 +841,463 @@ def cli_runs():
     return dict(runs=len(CLI_RUNS) + 1, worst_distance=worst, wall_s=wall)
 
 
+# ----------------------------------------------------------------------
+# phases 13-17: the fleet surfaces on phase 4's fleet and a mixed fleet
+def by_n(sl):
+    """Kernel 1-2 launches by system size n since the last reset."""
+    out = {}
+    for (k, n), c in sorted(sl.LAUNCHES_BY_N.items()):
+        if c:
+            out.setdefault(k, {})[str(n)] = c
+    return out
+
+
+def against_lockstep(ref, res, what):
+    """Hold ``res`` to phase 4's lockstep result ``ref`` per instance:
+    convergence sets, signals and iteration counts equal, max |dx|/(1+|x|)
+    over the instances both converged, and the count bitwise equal (signal,
+    iterations and every bit of x)."""
+    sig, its = res.signal.cpu().numpy(), res.iter_count.cpu().numpy()
+    x = res.x.cpu().numpy()
+    conv, conv_r = np.isin(sig, (1, 2)), np.isin(ref["sig"], (1, 2))
+    both = conv & conv_r
+    dx = np.abs(x - ref["x"]) / (1 + np.abs(ref["x"]))
+    out = dict(
+        same_convergence=bool(np.array_equal(conv, conv_r)),
+        signals_equal=int(np.sum(sig == ref["sig"])),
+        iters_equal=int(np.sum(its == ref["its"])),
+        max_rel_dx=float(dx[both].max()) if both.any() else 0.0,
+        bitwise_equal=int(np.sum((sig == ref["sig"]) & (its == ref["its"])
+                                 & np.all(x.view(np.int32)
+                                          == ref["x"].view(np.int32),
+                                          axis=1))),
+        hit_rate=float(np.mean(conv)), mean_iters=float(its.mean()),
+        max_iters=int(its.max()), total_iters=int(its.sum()))
+    print(f"  {what} against the lockstep fleet: convergence sets equal "
+          f"{out['same_convergence']}, signals equal {out['signals_equal']}/"
+          f"{sig.size}, iterations equal {out['iters_equal']}/{sig.size}, "
+          f"max |dx|/(1+|x|) {out['max_rel_dx']:.3e}, bitwise equal "
+          f"{out['bitwise_equal']}/{sig.size}; hit rate "
+          f"{out['hit_rate']:.4f}, mean {out['mean_iters']:.3f}, max "
+          f"{out['max_iters']} iterations", flush=True)
+    return out
+
+
+def timed(fn, counters):
+    """(result, wall s) of one call, the counters reset just before it."""
+    torch.cuda.synchronize()
+    reset(*counters)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_stats(wall, total_iters, sl, ll, _sync):
+    return dict(wall_s=wall, iters_per_s=total_iters / wall,
+                flat_steps=_sync.COUNTS["flat_steps"],
+                host_syncs=_sync.COUNTS["host_syncs"],
+                waves=_sync.COUNTS["waves"],
+                launches={**sl.LAUNCHES, **ll.LAUNCHES},
+                launches_by_n=by_n(sl))
+
+
+def wave_phase(problem, cfg, x0, data, ref, counters, sl, ll, _sync,
+               first_wave, wave):
+    """Phase 13: the fleet through ``make_wave_batch_solver``."""
+    from pyipm_tpu_torch import make_wave_batch_solver
+
+    fn = make_wave_batch_solver(problem, cfg, first_wave=first_wave,
+                                wave=wave)
+    fn(torch.zeros_like(x0), data)                             # warm-up
+    res, wall = timed(lambda: fn(x0, data), counters)
+    what = f"wave ({first_wave}, {wave})"
+    out = dict(against_lockstep(ref, res, what),
+               **run_stats(wall, int(res.iter_count.sum()), sl, ll, _sync))
+    print(f"  {what}: {out['waves']} waves, wall {wall:.4f} s, "
+          f"{out['iters_per_s']:.1f} iters/s, flat steps "
+          f"{out['flat_steps']}, host syncs {out['host_syncs']}, launches "
+          f"{out['launches_by_n']}; lockstep (phase 4, this call): wall "
+          f"{ref['wall_s']:.4f} s, flat steps {ref['flat_steps']}, host "
+          f"syncs {ref['host_syncs']}, launches {ref['launches_by_n']}",
+          flush=True)
+    # the JAX package's own contract for a wave run (test_wave.py:70-86)
+    if not out["same_convergence"]:
+        raise AssertionError("wave: convergence set differs from lockstep")
+    if out["iters_equal"] < 0.95 * B:
+        raise AssertionError(f"wave: iteration counts equal on "
+                             f"{out['iters_equal']} < 95%")
+    if out["max_rel_dx"] > 2e-3 or out["hit_rate"] < 0.99:
+        raise AssertionError(f"wave: max |dx|/(1+|x|) {out['max_rel_dx']}"
+                             f", hit rate {out['hit_rate']}")
+    require_launched(dict(sl.LAUNCHES), "wave fleet")
+    return out, fn
+
+
+def budget_phase(problem, cfg, x0, data, ref, counters, sl, ll, _sync):
+    """Phase 14: run_budget(3), save, restore onto the card, run."""
+    from pyipm_tpu_torch.core.solver import BatchSolver
+    from pyipm_tpu_torch.utils.checkpoint import restore_state, save_state
+
+    solver = BatchSolver(problem, cfg)
+    # the restore template, built before any count is taken (its
+    # init_state launches kernels 1-2 too)
+    like = solver.init_state(torch.zeros_like(x0), data)
+    st, t_budget = timed(lambda: solver.run_budget(
+        solver.init_state(x0, data), BUDGET, data), counters)
+    budget_launches = {**sl.LAUNCHES, **ll.LAUNCHES}
+    budget_by_n = by_n(sl)
+    paused = int((st.signal == 0).sum())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fleet")
+        t0 = time.perf_counter()
+        save_state(path, st)
+        t_save = time.perf_counter() - t0
+        nbytes = os.path.getsize(path + ".npz")
+        back, t_restore = timed(lambda: restore_state(path, like), ())
+    if back.x.device != x0.device or not all(
+            torch.equal(a, b) for a, b in zip(back, st)
+            if a is not None):
+        raise AssertionError("restored state differs from the saved one")
+    res, t_run = timed(lambda: solver.finalize(solver.run(back, data),
+                                               data), counters)
+    resume_launches = {**sl.LAUNCHES, **ll.LAUNCHES}
+    resume_by_n = by_n(sl)
+    out = dict(against_lockstep(ref, res, "budget+checkpoint+resume"),
+               paused=paused, checkpoint_bytes=nbytes, budget_s=t_budget,
+               save_s=t_save, restore_s=t_restore, resume_s=t_run,
+               launches={k: budget_launches[k] + resume_launches[k]
+                         for k in budget_launches},
+               launches_by_n=dict(budget=budget_by_n, resume=resume_by_n))
+    print(f"  run_budget({BUDGET}) {t_budget:.4f} s left {paused} of {B} "
+          f"paused, launches {budget_by_n}; checkpoint {nbytes} B, save "
+          f"{t_save:.4f} s, restore onto {back.x.device} {t_restore:.4f} s;"
+          f" resume {t_run:.4f} s, launches {resume_by_n}", flush=True)
+    if out["signals_equal"] != B or out["iters_equal"] != B:
+        raise AssertionError("resumed fleet: signals or iterations differ "
+                             "from the lockstep fleet")
+    if out["max_rel_dx"] > 1e-5:
+        raise AssertionError(f"resumed fleet: max |dx|/(1+|x|) "
+                             f"{out['max_rel_dx']} > 1e-5")
+    require_launched({k: out["launches"][k] for k in sl.LAUNCHES},
+                     "budget and resume")
+    return out
+
+
+def hold_seen_sizes(sl, device):
+    """Phase 18: kernels 1-2 held to their plain versions, as phase 3
+    does, at every size n a run launched them at and phase 3 did not
+    check, at the batch PATH_B, f32 and f64.  Returns the sizes held."""
+    gen = torch.Generator().manual_seed(SEED + 18)
+    todo = sorted({n for _, n in SEEN - HELD})
+    for dtype in (torch.float32, torch.float64):
+        for n in todo:
+            hold_small(sl, gen, PATH_B, n, dtype, device)
+    if SEEN - HELD:
+        raise AssertionError(f"sizes launched but not held: {SEEN - HELD}")
+    return todo
+
+
+def rescue_phase(problem, cfg, x0, data, counters, sl, ll, _sync, niter,
+                 miter):
+    """Phase 15: the fleet on a starved budget, then rescue_failures."""
+    from pyipm_tpu_torch import rescue_failures, solve_batch
+
+    rcfg = cfg.replace(niter=niter, miter=miter)
+    res = solve_batch(problem, x0, rcfg, params=data)
+    ok0 = (res.signal == 1) | (res.signal == 2)
+    hit0 = float(ok0.float().mean())
+    (merged, n_failed, n_rescued), wall = timed(
+        lambda: rescue_failures(res, x0, rcfg, problem, data), counters)
+    hit = float(((merged.signal == 1) | (merged.signal == 2)).float().mean())
+    kept = all(same_bits(a[ok0], b[ok0]) if a.is_floating_point()
+               else torch.equal(a[ok0], b[ok0])
+               for a, b in zip(merged[:-1], res[:-1]))
+    out = dict(hit_rate_before=hit0, n_failed=n_failed, n_rescued=n_rescued,
+               hit_rate_after=hit, converged_untouched=kept, wall_s=wall,
+               launches={**sl.LAUNCHES, **ll.LAUNCHES},
+               launches_by_n=by_n(sl))
+    print(f"  niter {niter}, miter {miter}: hit rate {hit0:.4f}; "
+          f"rescue_failures: "
+          f"n_failed {n_failed}, n_rescued {n_rescued}, hit rate after "
+          f"{hit:.4f}, converged instances bit for bit {kept}, wall "
+          f"{wall:.4f} s, launches {out['launches_by_n']}", flush=True)
+    if hit < 0.99 or not kept:
+        raise AssertionError(f"rescue: hit rate {hit}, converged instances "
+                             f"untouched {kept}")
+    require_launched(dict(sl.LAUNCHES), "rescue")
+    return out
+
+
+def mixed_buckets(device):
+    """Phase 16's buckets: name -> (problem, data batched on the card,
+    x0 (B, D))."""
+    from pyipm_tpu_torch.examples.heterogeneous_fleet import (
+        box_qp_data, box_qp_problem,
+    )
+    from pyipm_tpu_torch.models import applications as app
+
+    n = MIXED
+    pf = app.portfolio_data(app.sample_portfolio_arrays(
+        SEED, n["portfolio"], PORTFOLIO_D), device=device)
+    svm = app.svm_data(app.sample_svm_arrays(
+        SEED, n["svm"], SVM_N, SVM_FEAT), device=device)
+    me = app.maxent_data(app.sample_maxent_arrays(
+        SEED, n["maxent"], MAXENT_D, MAXENT_M), device=device)
+    mpc = app.mpc_data(app.sample_mpc_arrays(
+        SEED, n["mpc"], MPC_NX, MPC_NU), device=device)
+    box = [box_qp_data(BOX_D, SEED + i) for i in range(n["box"])]
+    box = tuple(torch.as_tensor(np.stack(c), dtype=torch.float32,
+                                device=device) for c in zip(*box))
+    return {
+        "portfolio": (app.make_portfolio_problem(PORTFOLIO_D), pf,
+                      app.portfolio_x0(n["portfolio"], PORTFOLIO_D,
+                                       device=device)),
+        "svm": (app.make_svm_problem(SVM_N), svm, app.svm_x0(svm)),
+        "maxent": (app.make_maxent_problem(MAXENT_D, MAXENT_M), me,
+                   app.maxent_x0(n["maxent"], MAXENT_D, device=device)),
+        "mpc": (app.make_mpc_problem(MPC_T, MPC_NU), mpc,
+                app.mpc_x0(n["mpc"], MPC_T, MPC_NU, device=device)),
+        "box_qp": (box_qp_problem(BOX_D), box,
+                   torch.zeros((n["box"], BOX_D), device=device)),
+    }
+
+
+def structure_ok(name, x, data, fval, prob):
+    """The structural checks of the JAX package's test_applications.py
+    (:20-97) on the converged instances; returns the worst violation
+    (<= 0 passes)."""
+    tol = 2e-3
+    if name in ("portfolio", "maxent"):
+        worst = max(float((x.sum(-1) - 1).abs().max()) - tol,
+                    float(-x.min()) - (tol if name == "portfolio" else 1e-4))
+        if name == "portfolio":
+            worst = max(worst, float((x - data.cap).max()) - tol)
+        else:
+            mom = torch.einsum("bmd,bd->bm", data.A, x)
+            worst = max(worst, float((mom - data.b).abs().max()) - 5e-3)
+        return worst
+    if name == "svm":
+        return max(float((data.y * x).sum(-1).abs().max()) - tol,
+                   float(-x.min()) - tol,
+                   float((x - data.C[:, None]).max()) - tol)
+    if name == "mpc":
+        f0 = prob.f_val(torch.zeros_like(x), data)
+        return max(float((x.abs() - data.umax[:, None]).max()) - tol,
+                   float((fval - f0).max()) - 1e-5)
+    return float(x.abs().max()) - 1.0 - tol                   # box QPs
+
+
+def mixed_fleet_phase(cfg, device, counters, sl, ll, _sync):
+    """Phase 16: each bucket alone through solve_fleet, then all of them
+    and reference problem 5 in one mixed solve_fleet call."""
+    from pyipm_tpu_torch import solve_fleet
+    from pyipm_tpu_torch.core.linesearch import take
+    from pyipm_tpu_torch.models.reference_problems import get_problem
+
+    def rows(data, idx):
+        return [take(data, i) for i in idx]
+
+    def stack(results):
+        return type(results[0])(*(
+            type(f)(*(torch.stack(c) for c in zip(*g)))
+            if isinstance(f, tuple) else torch.stack(g)
+            for f, g in zip(results[0], zip(*results))))
+
+    buckets = mixed_buckets(device)
+    out, alone = {}, {}
+    for name, (prob, data, x0b) in buckets.items():
+        Bn = x0b.shape[0]
+        params = rows(data, range(Bn))
+        args = ([prob] * Bn, list(x0b), cfg)
+        solve_fleet(args[0][:64], args[1][:64], cfg, params=params[:64],
+                    device=device)                             # warm-up
+        results, wall = timed(lambda: solve_fleet(*args, params=params,
+                                                  device=device), counters)
+        res = stack(results)
+        alone[name] = res
+        sig, its = res.signal.cpu().numpy(), res.iter_count.cpu().numpy()
+        conv = torch.as_tensor(np.isin(sig, (1, 2)), device=device)
+        hit = float(conv.float().mean())
+        worst = structure_ok(name, res.x[conv], take(data, conv),
+                             res.fval[conv], prob)
+        rec = dict(instances=Bn, nvar=prob.nvar, neq=prob.neq,
+                   nineq=prob.nineq, hit_rate=hit,
+                   mean_iters=float(its.mean()), max_iters=int(its.max()),
+                   signals={str(k): int(v) for k, v in
+                            zip(*np.unique(sig, return_counts=True))},
+                   structure_worst=worst,
+                   **run_stats(wall, int(its.sum()), sl, ll, _sync))
+        print(f"  {name} B={Bn} (D={prob.nvar}, M={prob.neq}, "
+              f"N={prob.nineq}): hit rate {hit:.4f}, mean "
+              f"{rec['mean_iters']:.3f}, max {rec['max_iters']} iterations,"
+              f" signals {rec['signals']}, wall {wall:.4f} s, "
+              f"{rec['iters_per_s']:.1f} iters/s, waves {rec['waves']}, "
+              f"flat steps {rec['flat_steps']}, host syncs "
+              f"{rec['host_syncs']}, launches {rec['launches_by_n']}, "
+              f"structural checks worst {worst:.3e} (<= 0 passes)",
+              flush=True)
+        if not np.all(np.isfinite(res.x.cpu().numpy())):
+            raise AssertionError(f"{name}: non-finite solution")
+        if worst > 0:
+            raise AssertionError(f"{name}: structural check fails by "
+                                 f"{worst}")
+        require_launched(dict(sl.LAUNCHES), name)
+        if hit < 0.99:
+            # f32 at this size: record, then the same bucket in f64
+            cfg64 = cfg.replace(float_dtype="float64")
+            r64, w64 = timed(lambda: stack(solve_fleet(
+                [prob] * Bn, list(x0b), cfg64, params=params,
+                device=device)), counters)
+            s64 = r64.signal.cpu().numpy()
+            rec["float64"] = dict(
+                hit_rate=float(np.mean(np.isin(s64, (1, 2)))),
+                mean_iters=float(r64.iter_count.float().mean()),
+                max_iters=int(r64.iter_count.max()), wall_s=w64,
+                signals={str(k): int(v) for k, v in
+                         zip(*np.unique(s64, return_counts=True))},
+                launches_by_n=by_n(sl))
+            print(f"  {name} again in float64: {rec['float64']}",
+                  flush=True)
+        out[name] = rec
+
+    # all buckets and one singleton in one call
+    spec = get_problem(5)
+    x05 = spec.sample_x0(np.random.default_rng(SEED)).astype(np.float32)
+    probs, x0s, params, owner = [], [], [], []
+    for name, (prob, data, x0b) in buckets.items():
+        Bn = x0b.shape[0]
+        probs += [prob] * Bn
+        x0s += list(x0b)
+        params += rows(data, range(Bn))
+        owner += [(name, i) for i in range(Bn)]
+    probs.append(spec.make())
+    x0s.append(x05)
+    params.append(())
+    results, wall = timed(lambda: solve_fleet(probs, x0s, cfg, params=params,
+                                              device=device), counters)
+    total = int(sum(int(r.iter_count) for r in results))
+    mixed = dict(instances=len(probs), total_iters=total,
+                 **run_stats(wall, total, sl, ll, _sync))
+    same = 0
+    for (name, i), r in zip(owner, results):
+        a = alone[name]
+        same += bool(int(r.signal) == int(a.signal[i])
+                     and int(r.iter_count) == int(a.iter_count[i])
+                     and torch.equal(r.x, a.x[i]))
+    single = results[-1]
+    dist = spec.distance_to_truth(single.x.cpu().numpy())
+    mixed.update(bitwise_equal_to_alone=same, singleton_signal=int(
+        single.signal), singleton_iters=int(single.iter_count),
+        singleton_distance=dist)
+    print(f"  mixed solve_fleet: {len(probs)} instances in "
+          f"{len(buckets) + 1} buckets, wall {wall:.4f} s, "
+          f"{mixed['iters_per_s']:.1f} iters/s, waves {mixed['waves']}, "
+          f"flat steps {mixed['flat_steps']}, host syncs "
+          f"{mixed['host_syncs']}, launches {mixed['launches_by_n']}; "
+          f"{same}/{len(owner)} bitwise equal to the buckets run alone; "
+          f"problem 5: signal {mixed['singleton_signal']} in "
+          f"{mixed['singleton_iters']} iterations, distance {dist:.3e}",
+          flush=True)
+    if int(single.signal) not in (1, 2) or dist > 5e-3:
+        raise AssertionError(f"problem 5 in the mixed fleet: signal "
+                             f"{int(single.signal)}, distance {dist}")
+    require_launched(dict(sl.LAUNCHES), "mixed fleet")
+    out["all_buckets"] = mixed
+    return out
+
+
+def observability_phase(problem, cfg, x0, data, wave_fn, ref, counters, sl,
+                        _sync):
+    """Phase 17: profile_solve on the wave fleet, trace() around a fleet
+    solve, trace_metrics on the fleet, and the CLI's --profile."""
+    from pyipm_tpu_torch import solve_batch
+    from pyipm_tpu_torch.utils.profiling import (
+        SCOPES, annotate, iteration_report, profile_solve, trace,
+    )
+
+    prof = profile_solve(wave_fn, x0, data, reps=3)
+    print("  profile_solve(wave fleet): " + str(prof).replace("\n", "; "),
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, t_traced = timed(lambda: _traced(trace, tmp, solve_batch, problem,
+                                            x0, cfg, data), ())
+        (path,) = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        trace_bytes = os.path.getsize(path)
+        with open(path) as fh:
+            names = [e.get("name") for e in json.load(fh)["traceEvents"]
+                     if e.get("cat") == "user_annotation"]
+    missing = [s for s in SCOPES if s not in names]
+    scope_count = sum(n in SCOPES for n in names)
+    # what a scope costs the host when no profiler runs (record_function
+    # and an NVTX range), per entry
+    calls = 10_000
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        with annotate("ipm-direction", x0.device):
+            pass
+    scope_us = (time.perf_counter() - t0) / calls * 1e6
+    print(f"  trace() around one fleet solve: {t_traced:.4f} s, "
+          f"{trace_bytes} B of Chrome trace, {scope_count} scope entries, "
+          f"scopes missing {missing}; a scope costs {scope_us:.2f} us of "
+          f"host time outside the profiler ({scope_count * scope_us / 1e3:.3f}"
+          f" ms a solve)", flush=True)
+    if missing:
+        raise AssertionError(f"scopes missing from the trace: {missing}")
+
+    hcfg = cfg.replace(trace_metrics=True)
+    solve_batch(problem, x0[:64], hcfg, params=type(data)(
+        *(t[:64] for t in data)))                             # warm-up
+    hres, wall = timed(lambda: solve_batch(problem, x0, hcfg, params=data),
+                       counters)
+    hbytes = sum(t.numel() * t.element_size() for t in hres.hist)
+    cmp = against_lockstep(ref, hres, "trace_metrics=True")
+    last = hres.hist.kkt[0, int(hres.iter_count[0]) - 1]
+    print(f"  trace_metrics=True: wall {wall:.4f} s (lockstep "
+          f"{ref['wall_s']:.4f} s), history {hbytes} B "
+          f"{tuple(hres.hist.kkt.shape)}; instance 0:\n"
+          + iteration_report(hres, 0), flush=True)
+    if cmp["bitwise_equal"] != B or not torch.equal(last, hres.kkt[0]):
+        raise AssertionError("trace_metrics changed the solve, or its last "
+                             "row is not the final KKT")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["-m", "pyipm_tpu_torch", "7", "--seed", "42", "--profile",
+                tmp]
+        proc = subprocess.run([sys.executable] + args, capture_output=True,
+                              text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        files = os.listdir(tmp)
+        ok = (proc.returncode == 0 and len(files) == 1
+              and "Converged to" in proc.stdout)
+        if ok:
+            with open(os.path.join(tmp, files[0])) as fh:
+                text = fh.read()
+            ok = all(s in text for s in SCOPES)
+    print(f"  python {' '.join(args[:-1])} DIR: exit {proc.returncode}, "
+          f"trace files {len(files)}, converged and all scopes present "
+          f"{ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"--profile run failed:\n{proc.stdout[-2000:]}"
+                             f"\n{proc.stderr[-2000:]}")
+    return dict(profile_solve=dict(first_call_s=prof.compile_s,
+                                   execute_s=prof.execute_s,
+                                   iters_per_s=prof.iters_per_s,
+                                   backend=prof.backend),
+                traced_solve_s=t_traced, trace_bytes=trace_bytes,
+                scope_entries=scope_count, scope_us=scope_us,
+                history_bytes=hbytes, trace_metrics_wall_s=wall,
+                trace_metrics_launches=dict(sl.LAUNCHES))
+
+
+def _traced(trace, logdir, solve_batch, problem, x0, cfg, data):
+    with trace(logdir):
+        return solve_batch(problem, x0, cfg, params=data)
+
+
+T_START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -814,6 +1336,7 @@ def main() -> int:
 
     phase("3 kernels 1-2 against their plain versions")
     err, times = check_small_kernels(sl, device)
+    sl.LAUNCHES_BY_N.clear()          # the checks' own launches are no run's
 
     phase("4 slice A: 10,000-QP float32 fleet on cuda:0")
     cfg = IPMConfig(float_dtype="float32", verbosity=0, Ktol=1e-4)
@@ -825,12 +1348,13 @@ def main() -> int:
     x0 = torch.as_tensor(1e-6 * rng.standard_normal((B, D)),
                          dtype=torch.float32, device=device)
     torch.cuda.synchronize()
-    reset(sl.LAUNCHES, ll.LAUNCHES, _sync.COUNTS)
+    reset(sl.LAUNCHES, sl.LAUNCHES_BY_N, ll.LAUNCHES, _sync.COUNTS)
     t0 = time.perf_counter()
     res = solve_batch(problem, x0, cfg, params=data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(sl.LAUNCHES)
+    launches_n = by_n(sl)
     stats = dict(_sync.COUNTS)
     sig = res.signal.cpu().numpy()
     its = res.iter_count.cpu().numpy()
@@ -849,7 +1373,9 @@ def main() -> int:
     fleet = dict(hit_rate=hit, mean_iters=float(its.mean()),
                  max_iters=int(its.max()), wall_s=wall,
                  flat_steps=stats["flat_steps"],
-                 host_syncs=stats["host_syncs"])
+                 host_syncs=stats["host_syncs"], launches_by_n=launches_n)
+    # phase 4's per-instance result, what phases 13-15 and 17 are held to
+    lockstep = dict(fleet, sig=sig, its=its, x=res.x.cpu().numpy())
     if tuple(res.x.shape) != (B, D) or not bool(torch.isfinite(res.x).all()):
         raise AssertionError("fleet solution is not a finite (B, D) array")
     if hit < 0.99:
@@ -965,7 +1491,7 @@ def main() -> int:
                     flat_steps=mstats["flat_steps"],
                     host_syncs=mstats["host_syncs"], launches=mlaunches,
                     cpu_cross_check=mcross)
-    del data, mres, mres_cpu
+    del mres, mres_cpu
 
     phase(f"11 L-BFGS({LBFGS_MEM}) on the dense NLP D={LBFGS_D}, "
           f"M={LBFGS_M}, float64, cuda:0")
@@ -1012,6 +1538,47 @@ def main() -> int:
           flush=True)
     require_launched(facade["launches"], "CLI")
 
+    counters = (sl.LAUNCHES, sl.LAUNCHES_BY_N, ll.LAUNCHES, _sync.COUNTS)
+    phase(f"13 wave-compacted fleet (first_wave, wave = {WAVE_FIRST}, "
+          f"{WAVE}; then {WAVE_SMALL}, {WAVE_SMALL}) on phase 4's fleet, "
+          f"cuda:0")
+    wave, wave_fn = wave_phase(problem, cfg, x0, data, lockstep, counters,
+                               sl, ll, _sync, WAVE_FIRST, WAVE)
+    wave["small_waves"], _ = wave_phase(problem, cfg, x0, data, lockstep,
+                                        counters, sl, ll, _sync, WAVE_SMALL,
+                                        WAVE_SMALL)
+
+    phase(f"14 run_budget({BUDGET}), save_state, restore_state onto the "
+          f"card, run: phase 4's fleet")
+    budget = budget_phase(problem, cfg, x0, data, lockstep, counters, sl, ll,
+                          _sync)
+
+    phase("15 phase 4's fleet at niter 2, miter 3 (and 3, 5), then "
+          "rescue_failures")
+    rescue = rescue_phase(problem, cfg, x0, data, counters, sl, ll, _sync,
+                          2, 3)
+    # a budget that leaves half the fleet converged, which must not move
+    rescue["niter3_miter5"] = rescue_phase(problem, cfg, x0, data, counters,
+                                           sl, ll, _sync, 3, 5)
+
+    phase("16 a mixed fleet through solve_fleet, float32, cuda:0")
+    mixed = mixed_fleet_phase(cfg, device, counters, sl, ll, _sync)
+
+    phase("17 observability: profile_solve, trace(), trace_metrics, "
+          "--profile")
+    observe = observability_phase(problem, cfg, x0, data, wave_fn, lockstep,
+                                  counters, sl, _sync)
+    del data
+
+    phase("18 kernels 1-2 against their plain versions at every size a run "
+          "launched them at that phase 3 did not check")
+    reset(sl.LAUNCHES_BY_N)
+    held_late = hold_seen_sizes(sl, device)
+    print(f"  phases 4-17 launched kernel 1 at n = "
+          f"{sorted(n for k, n in SEEN if k == 'factor')}, kernel 2 at n = "
+          f"{sorted(n for k, n in SEEN if k == 'solve')}; held here at n = "
+          f"{held_late} (B = {PATH_B}), the rest in phase 3", flush=True)
+
     def row(name, replaces, source, launches_, rec_, shape):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_,
@@ -1054,7 +1621,18 @@ def main() -> int:
     ], "launches_by_path": {"fleet": launches, **path_launches,
                             "mehrotra_fleet": mlaunches,
                             "lbfgs_dense": lbfgs["launches"],
-                            "cli": facade["launches"]},
+                            "cli": facade["launches"],
+                            "wave_fleet": wave["launches"],
+                            "budget_resume": budget["launches"],
+                            "rescue": rescue["launches"],
+                            **{f"mixed_{k}": v["launches"]
+                               for k, v in mixed.items()}},
+        "launches_by_n": {"fleet": launches_n,
+                          "wave_fleet": wave["launches_by_n"],
+                          "budget_resume": budget["launches_by_n"],
+                          "rescue": rescue["launches_by_n"],
+                          **{f"mixed_{k}": v["launches_by_n"]
+                             for k, v in mixed.items()}},
         "ldlt_factor_small_timings": {
             str(n): {"ms": t["factor"], "device_ms": t["factor_device"][0],
                      "kernel_launches_per_call": t["factor_device"][2],
@@ -1074,7 +1652,12 @@ def main() -> int:
                      "bound_ms": t["solve_bound"][0]}
             for n, t in times.items() if "solve" in t},
         "fleet": fleet, "kkt_4352": kkt, "dense_nlp": dense,
-        "mehrotra_fleet": mehrotra, "lbfgs_dense": lbfgs, "cli": facade}
+        "mehrotra_fleet": mehrotra, "lbfgs_dense": lbfgs, "cli": facade,
+        "wave_fleet": wave, "budget_resume": budget, "rescue": rescue,
+        "mixed_fleet": mixed, "observability": observe,
+        "sizes_held_in_phase_18": held_late,
+        "total_s": time.perf_counter() - T_START}
+    print(f"chip_smoke: all phases passed in {record['total_s']:.1f} s")
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -16,18 +16,27 @@ Public API:
   - `Problem`, `make_problem` — per-instance callables ``(x, p)``.
   - `make_solver`, `solve` — batch-first solver; single-instance solve.
   - `solve_batch`, `make_batch_solver` — lockstep fleet solve.
+  - `make_wave_batch_solver` — a fleet that retires converged instances
+    in waves; `rescue_failures` — re-solve a fleet's failures;
+    `solve_fleet` — mixed problems and shapes in one call.
+  - `MetricsHistory` — per-iteration histories (``trace_metrics``);
+    ``utils.profiling`` and ``utils.checkpoint`` — scopes, traces,
+    timings, and pause/save/restore/resume of a solve.
 """
 
 from pyipm_tpu_torch.api import IPM
 from pyipm_tpu_torch.config import IPMConfig
 from pyipm_tpu_torch.core.problem import Problem, make_problem
 from pyipm_tpu_torch.core.solver import (
-    SolverResult, SolverState, make_solver, solve,
+    MetricsHistory, SolverResult, SolverState, make_solver, solve,
 )
 from pyipm_tpu_torch.models.reference_problems import (
     REFERENCE_PROBLEMS, get_problem,
 )
-from pyipm_tpu_torch.parallel.batch import make_batch_solver, solve_batch
+from pyipm_tpu_torch.parallel.batch import (
+    make_batch_solver, make_wave_batch_solver, rescue_failures, solve_batch,
+)
+from pyipm_tpu_torch.parallel.fleet import solve_fleet
 
 __version__ = "0.1.0"
 
@@ -40,8 +49,12 @@ __all__ = [
     "make_problem",
     "SolverState",
     "SolverResult",
+    "MetricsHistory",
     "make_solver",
     "solve",
     "make_batch_solver",
     "solve_batch",
+    "make_wave_batch_solver",
+    "rescue_failures",
+    "solve_fleet",
 ]

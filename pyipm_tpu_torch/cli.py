@@ -3,6 +3,7 @@
 
     python -m pyipm_tpu_torch <1..10> [--lbfgs M] [--f32] [--verbosity V]
         [--seed S] [--linear-solver {condensed,ldlt,lu}] [--device {cuda,cpu}]
+        [--profile LOGDIR]
 
 The same problems, flags and printout as the reference CLI (pyipm.py:
 1866-2137) and ``python -m pyipm_tpu``; ``--device cpu`` runs on the CPU,
@@ -34,12 +35,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the solve runs (default: the card)")
     ap.add_argument("--profile", metavar="LOGDIR", default=None,
-                    help="not available in the port yet")
+                    help="write a Chrome/Perfetto trace of the solve to "
+                         "LOGDIR (torch.profiler)")
     args = ap.parse_args(argv)
-    if args.profile:
-        raise NotImplementedError(
-            "--profile: profiling the port is ROADMAP Queue 1 item 10, not "
-            "ported yet")
 
     from pyipm_tpu_torch.api import IPM
     from pyipm_tpu_torch.models.reference_problems import get_problem
@@ -55,7 +53,12 @@ def main(argv=None):
     p = IPM(x0=x0, f=spec.f, ce=spec.ce, ci=spec.ci, Ftol=1.0E-8,
             lbfgs=args.lbfgs, float_dtype=dtype, verbosity=args.verbosity,
             linear_solver=args.linear_solver, device=args.device)
-    x, s, lda, fval, kkt = p.solve()
+    if args.profile:
+        from pyipm_tpu_torch.utils.profiling import trace
+        with trace(args.profile):
+            x, s, lda, fval, kkt = p.solve()
+    else:
+        x, s, lda, fval, kkt = p.solve()
 
     print("")
     print("Ground truth (any of): {}".format(

@@ -20,12 +20,21 @@ solve; a single solve is a batch of one, and only it prints the JAX
 solver's progress lines (``verbosity > 0``), at the cost of a host sync per
 line; a fleet prints nothing.
 
+Every piece of loop position lives in the state, so :meth:`BatchSolver.
+run_budget` can pause a solve after a number of inner iterations per
+instance and :meth:`BatchSolver.run` resume it exactly: the mechanism of
+the wave-compacted fleet (``parallel/batch.py``) and of checkpoints
+(``utils/checkpoint.py``).  ``trace_metrics`` keeps per-iteration
+histories (:class:`MetricsHistory`), and the phases carry the profiling
+scopes of ``utils/profiling.py``.
+
 Signals: 0 running | 1 Ktol converged | 2 Ftol converged | -1 max
 iterations | -2 unreliable search direction | -3 non-finite iterate.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,6 +52,17 @@ from pyipm_tpu_torch.ops.condensed import (
     condensed_direction, condensed_direction_mehrotra,
 )
 from pyipm_tpu_torch.ops.linalg import reg_solve_kkt
+from pyipm_tpu_torch.utils import profiling
+
+
+class MetricsHistory(NamedTuple):
+    """Per-iteration traces of a ``trace_metrics=True`` solve, indexed by
+    ``iter_count - 1``; T = niter * miter, and T = 0 when tracing is off."""
+    kkt: torch.Tensor          # (B, T, 4)
+    mu: torch.Tensor           # (B, T)
+    nu: torch.Tensor
+    alpha: torch.Tensor
+    delta: torch.Tensor
 
 
 class SolverState(NamedTuple):
@@ -69,6 +89,8 @@ class SolverState(NamedTuple):
     lbfgs: Optional[LBFGSState] = None
     x_old: Optional[torch.Tensor] = None   # (B, D) previous iterate
     g: Optional[torch.Tensor] = None       # (B, K) cached -grad
+    # trace_metrics only (None otherwise)
+    hist: Optional[MetricsHistory] = None
 
 
 class SolverResult(NamedTuple):
@@ -85,6 +107,7 @@ class SolverResult(NamedTuple):
     nu: torch.Tensor
     delta: torch.Tensor
     reg_retries: torch.Tensor
+    hist: MetricsHistory       # (B, 0, ...) fields when tracing is off
 
 
 def _where(mask, new, old):
@@ -116,13 +139,43 @@ def _put(st: SolverState, ids, sub: SolverState) -> SolverState:
     return _tree(lambda t, u: t.index_copy(0, ids, u), st, sub)
 
 
-def _check_supported(cfg: IPMConfig, nineq: int) -> IPMConfig:
-    cfg = cfg.resolve_mu_strategy(nineq)
-    if cfg.trace_metrics:
-        raise NotImplementedError(
-            "trace_metrics: per-iteration histories are ROADMAP Queue 1 "
-            "item 10 (observability), not ported yet")
-    return cfg
+def _phase(fn):
+    """Run a solver phase without autograd, at the configured matmul
+    precision (the JAX package's ``_prec``, solver.py:548-560), so that a
+    budgeted or resumed run computes what a straight solve does."""
+    @functools.wraps(fn)
+    def wrapped(self, *a, **kw):
+        with torch.no_grad(), matmul_precision(self.config.matmul_precision):
+            return fn(self, *a, **kw)
+    return wrapped
+
+
+def _empty_history(x, T: int) -> MetricsHistory:
+    """Zeroed (B, T, ...) history buffers in x's dtype and device."""
+    B = x.shape[0]
+    return MetricsHistory(x.new_zeros((B, T, 4)),
+                          *(x.new_zeros((B, T)) for _ in range(4)))
+
+
+def _record(hist: MetricsHistory, ids, sub: SolverState):
+    """Write row ``iter_count - 1`` of each stepped instance ``ids`` (in
+    place: :meth:`BatchSolver._loop` owns the buffers it writes)."""
+    t = sub.iter_count.long() - 1
+    hist.kkt.index_put_((ids, t), sub.kkt)
+    for k in ("mu", "nu", "alpha", "delta"):
+        getattr(hist, k).index_put_((ids, t), getattr(sub, k))
+
+
+def _check_finite(sub: SolverState):
+    """``enable_nan_debugging``: raise at the first non-finite field, with
+    one host sync a step (the field is named on the failure path only)."""
+    fields = ("x", "s", "lda", "kkt")
+    bad = torch.stack([~torch.isfinite(getattr(sub, k)).all()
+                       for k in fields])
+    if _sync.any_true(bad):
+        k = fields[int(bad.int().argmax())]
+        raise FloatingPointError(f"non-finite {k} after an inner iteration "
+                                 f"(enable_nan_debugging)")
 
 
 class BatchSolver:
@@ -141,7 +194,7 @@ class BatchSolver:
                  echo: bool = False):
         cfg = config if config is not None else IPMConfig()
         self.problem = problem
-        self.config = _check_supported(cfg, problem.nineq)
+        self.config = cfg.resolve_mu_strategy(problem.nineq)
         self.echo = echo and self.config.verbosity > 0
 
     # ------------------------------------------------------------------
@@ -226,10 +279,12 @@ class BatchSolver:
         if self.echo:
             self._print_iteration(st, p)
 
-        if cfg.lbfgs:
-            dz, st = self.direction_lbfgs(st, p)
-        else:
-            dz, st = self.direction(st, p)
+        dev = st.x.device
+        with profiling.annotate("ipm-direction", dev):
+            if cfg.lbfgs:
+                dz, st = self.direction_lbfgs(st, p)
+            else:
+                dz, st = self.direction(st, p)
 
         if problem.ncon:
             # multiplier sign flip (pyipm.py:1723-1725) and merit penalty
@@ -252,8 +307,9 @@ class BatchSolver:
         if cfg.inject_solve_fault:
             dz = dz + cfg.inject_solve_fault * torch.roll(dz, 1, dims=-1)
 
-        res = search(problem, cfg, st.x, st.s, st.lda, dz, a_s, a_l,
-                     st.mu, st.nu, st.signal, p)
+        with profiling.annotate("ipm-line-search", dev):
+            res = search(problem, cfg, st.x, st.s, st.lda, dz, a_s, a_l,
+                         st.mu, st.nu, st.signal, p)
         if self.echo and cfg.verbosity > 2:
             # line-search notices (reference pyipm.py:1485-1487, 1496-1500)
             if bool(res.soc[0]):
@@ -262,8 +318,9 @@ class BatchSolver:
                 print("Search direction is unreliable to machine precision.")
         st = st._replace(x=res.x, s=res.s, lda=res.lda, signal=res.signal,
                          alpha=res.alpha, iter_count=st.iter_count + 1)
-        st = st._replace(kkt=K.kkt_norms(problem, st.x, st.s, st.lda,
-                                         st.mu, p))
+        with profiling.annotate("ipm-kkt-residual", dev):
+            st = st._replace(kkt=K.kkt_norms(problem, st.x, st.s, st.lda,
+                                             st.mu, p))
 
         if cfg.nan_guard:
             finite = (torch.all(torch.isfinite(st.x), dim=-1)
@@ -346,22 +403,51 @@ class BatchSolver:
         st = _merge(st, stop, inner_done=torch.ones_like(st.inner_done))
         ids = _sync.indices(active & ~conv_in)
         if ids.numel():
+            # the history is not gathered: each stepped row is written once
+            hist, st = st.hist, st._replace(hist=None)
             sub = self.inner_iter(_rows(st, ids), take(p, ids))
+            if profiling.nan_debugging():
+                _check_finite(sub)
             st = _put(st, ids, sub._replace(inner=sub.inner + 1))
+            if hist is not None:
+                _record(hist, ids, sub)
+            st = st._replace(hist=hist)
 
         done = mi & ((st.inner >= cfg.miter) | (st.signal != 0)
                      | st.inner_done)
-        return self.outer_epilogue(st, done, p)
+        with profiling.annotate("ipm-outer-epilogue", st.x.device):
+            return self.outer_epilogue(st, done, p)
 
-    def run(self, st: SolverState, p) -> SolverState:
+    @_phase
+    def _loop(self, st: SolverState, p, limit=None) -> SolverState:
+        """Flat steps until no instance runs; with ``limit`` (B,) an
+        instance also stops once its ``iter_count`` reaches it."""
+        if st.hist is not None:
+            # the steps write rows in place: into a copy of the caller's
+            st = st._replace(hist=_tree(torch.clone, st.hist))
         while True:
             running = (st.outer < self.config.niter) & (st.signal == 0)
+            if limit is not None:
+                running = running & (st.iter_count < limit)
             if not _sync.any_true(running):
                 return st
             st = self.flat_step(st, running, p)
             _sync.COUNTS["flat_steps"] += 1
 
+    def run(self, st: SolverState, p=()) -> SolverState:
+        """Run every instance to the end of its solve."""
+        return self._loop(st, p)
+
+    def run_budget(self, st: SolverState, max_new_iters,
+                   p=()) -> SolverState:
+        """Advance each instance by at most ``max_new_iters`` more inner
+        iterations (its own ``iter_count`` plus the budget, JAX
+        solver.py:246-262), then pause.  ``signal == 0`` means paused; the
+        state resumes exactly under :meth:`run` or :meth:`run_budget`."""
+        return self._loop(st, p, limit=st.iter_count + int(max_new_iters))
+
     # ------------------------------------------------------------------
+    @_phase
     def init_state(self, x0, p=(), s0=None, lda0=None, mu0=None,
                    nu0=None) -> SolverState:
         """Initialization (reference pyipm.py:1596-1651).
@@ -408,30 +494,34 @@ class BatchSolver:
         def no():
             return torch.zeros((B,), dtype=torch.bool, device=x.device)
 
-        lbfgs = {}
+        extra = {}
         if cfg.lbfgs:
-            lbfgs = dict(
+            extra = dict(
                 lbfgs=lbfgs_init(B, D, cfg.lbfgs_mem, cfg.zeta0, dtype,
                                  x.device),
                 x_old=x, g=-K.grad(problem, x, s, lda, mu, p))
+        if cfg.trace_metrics:
+            extra["hist"] = _empty_history(x, cfg.niter * cfg.miter)
         return SolverState(
             x=x, s=s, lda=lda, mu=mu, nu=full(cfg.nu, nu0),
             delta=full(0.0), kkt=kkt0, signal=i32(), iter_count=i32(),
             outer=i32(), inner=i32(), inner_done=no(), in_inner=no(),
-            f_past=f_past, alpha=full(0.0), reg_retries=i32(), **lbfgs)
+            f_past=f_past, alpha=full(0.0), reg_retries=i32(), **extra)
 
+    @_phase
     def finalize(self, st: SolverState, p=()) -> SolverResult:
         return SolverResult(
             x=st.x, s=st.s, lda=st.lda, fval=self.problem.f_val(st.x, p),
             kkt=st.kkt, signal=st.signal, iter_count=st.iter_count,
             outer=st.outer, inner=st.inner, mu=st.mu, nu=st.nu,
-            delta=st.delta, reg_retries=st.reg_retries)
+            delta=st.delta, reg_retries=st.reg_retries,
+            hist=(st.hist if st.hist is not None
+                  else _empty_history(st.x, 0)))
 
     def __call__(self, x0, params=(), s0=None, lda0=None, mu0=None,
                  nu0=None) -> SolverResult:
-        with torch.no_grad(), matmul_precision(self.config.matmul_precision):
-            st = self.init_state(x0, params, s0, lda0, mu0, nu0)
-            return self.finalize(self.run(st, params), params)
+        st = self.init_state(x0, params, s0, lda0, mu0, nu0)
+        return self.finalize(self.run(st, params), params)
 
 
 def make_solver(problem: Problem,
@@ -453,4 +543,4 @@ def solve(problem: Problem, x0, config: Optional[IPMConfig] = None,
         x0.reshape(1, -1), p1,
         None if s0 is None else s0.reshape(1, -1),
         None if lda0 is None else lda0.reshape(1, -1), mu0, nu0)
-    return SolverResult(*(t[0] for t in res))
+    return _tree(lambda t: t[0], res)

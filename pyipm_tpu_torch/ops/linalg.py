@@ -25,6 +25,7 @@ from pyipm_tpu_torch.ops.large_ldlt import (
     MAX_PANEL, bwd_sweep_blocks, bwd_sweep_panels, panel_ldlt,
 )
 from pyipm_tpu_torch.ops.small_ldlt import ldlt_factor_small, ldlt_solve_small
+from pyipm_tpu_torch.utils.profiling import annotate
 
 SMALL_K = 128
 
@@ -362,28 +363,26 @@ def _reg_solve_large(H, g, delta, mu, *, nvar, neq, nineq, eps, reg_coef,
     rhs_fold = dsc * g
 
     if want_solver:
-        def factor(Hm):
-            return ldlt_factor_blocks(Hm, block=block, group=group,
-                                      rhs=rhs_fold, pad_to_grid=True)
-
-        def fsolve(f, rhs):
-            return ldlt_solve_blocks(f[0], f[1], f[2], rhs)
-
-        def first_solve(f):
-            return dsc * ldlt_solve_blocks_bwd(f[0], f[1], f[2], f[3])[:K]
+        factor_fn, solve_fn, bwd_fn = (ldlt_factor_blocks, ldlt_solve_blocks,
+                                       ldlt_solve_blocks_bwd)
+        fkw = dict(pad_to_grid=True)
     else:
-        def factor(Hm):
-            return ldlt_factor_panels(Hm, block=block, group=group,
-                                      rhs=rhs_fold)
+        factor_fn, solve_fn, bwd_fn = (ldlt_factor_panels, ldlt_solve_panels,
+                                       ldlt_solve_panels_bwd)
+        fkw = {}
 
-        def fsolve(f, rhs):
-            return ldlt_solve_panels(f[0], f[1], f[2], rhs)
+    def factor(Hm):
+        with annotate("ipm-kkt-factor", dev):
+            return factor_fn(Hm, block=block, group=group, rhs=rhs_fold,
+                             **fkw)
 
-        def first_solve(f):
-            return dsc * ldlt_solve_panels_bwd(f[0], f[1], f[2], f[3])[:K]
+    def first_solve(f):
+        with annotate("ipm-kkt-solve", dev):
+            return dsc * bwd_fn(f[0], f[1], f[2], f[3])[:K]
 
     def scaled_solve(f, rhs):
-        return dsc * fsolve(f, dsc * rhs)
+        with annotate("ipm-kkt-solve", dev):
+            return dsc * solve_fn(f[0], f[1], f[2], dsc * rhs)
 
     def shifted(dlt, eq):
         Hm = Hs.clone()
@@ -598,10 +597,15 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
     shift_diag = (dsc * dsc) * ex
     eq_diag = (dsc * dsc) * eeq
 
-    def scaled_solve(L_, d_, dsc_, rhs):
-        return ldlt_solve_small(L_, d_, rhs.contiguous(), scale=dsc_)
+    def factor(Hm):
+        with annotate("ipm-kkt-factor", dev):
+            return ldlt_factor_small(Hm)
 
-    L, dv = ldlt_factor_small(Hs.contiguous())
+    def scaled_solve(L_, d_, dsc_, rhs):
+        with annotate("ipm-kkt-solve", dev):
+            return ldlt_solve_small(L_, d_, rhs.contiguous(), scale=dsc_)
+
+    L, dv = factor(Hs.contiguous())
     ok0 = ldlt_inertia_ok(dv, target, eps_t)
     if M:
         ad0 = torch.abs(dv)
@@ -625,7 +629,7 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
             break
         t_s = t[ids]
         dlt_s = torch.where(t_s == 0, d1[ids], dlt[ids] * 10.0)
-        L_s, d_s = ldlt_factor_small(_shifted(
+        L_s, d_s = factor(_shifted(
             Hs[ids], dlt_s, shift_diag[ids], eq_applied[ids], eq_diag[ids]))
         L[ids] = L_s
         dv[ids] = d_s
@@ -686,7 +690,7 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
         dg = d_gate[ids]
         dlt_s = torch.where(dg == 0, delta0_t, dg) * 10.0
         eq_s = eq_applied[ids]
-        L_s, d_s = ldlt_factor_small(_shifted(
+        L_s, d_s = factor(_shifted(
             Hs[ids], dlt_s, shift_diag[ids], eq_s, eq_diag[ids]))
         dz_s, rn_s, _ = solve_refined(H[ids], g[ids], dsc[ids], L_s, d_s,
                                       dlt_s, eq_s, hnorm_H[ids])

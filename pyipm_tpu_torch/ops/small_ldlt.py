@@ -7,10 +7,13 @@ Counterpart of ``ldlt_factor_small`` / ``ldlt_solve_small`` in
 
 The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
-counts kernel launches per kernel; nothing else adds to it.
+counts kernel launches per kernel, and ``LAUNCHES_BY_N`` the same launches
+by (kernel, n); nothing else adds to them.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -18,6 +21,7 @@ from pyipm_tpu_torch.ops import _build
 
 MAX_N = 128
 LAUNCHES = {"factor": 0, "solve": 0}
+LAUNCHES_BY_N = collections.Counter()
 
 
 # ----------------------------------------------------------------------
@@ -78,6 +82,7 @@ def ldlt_factor_small(A):
     _build.launch("pyipm_ldlt_factor", "ldlt_factor_small", A.dtype,
                   A.device, A.data_ptr(), L.data_ptr(), d.data_ptr(), B, n)
     LAUNCHES["factor"] += 1
+    LAUNCHES_BY_N["factor", n] += 1
     return L, d
 
 
@@ -107,4 +112,5 @@ def ldlt_solve_small(L, d, b, scale=None):
                   None if scale is None else scale.data_ptr(),
                   x.data_ptr(), B, n)
     LAUNCHES["solve"] += 1
+    LAUNCHES_BY_N["solve", n] += 1
     return x

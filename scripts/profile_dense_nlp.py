@@ -128,9 +128,11 @@ def main():
             pwall = time.perf_counter() - t0
         avg = prof.key_averages()
         # device-side events only (kernels, copies, memsets); the host ops
-        # that launched them carry the same time and are left out
+        # that launched them carry the same time and are left out, and so
+        # are the annotation spans (these labels, the solver's "ipm-*")
         kernels = [e for e in avg if e.device_type == DeviceType.CUDA
-                   and _dev_time(e) > 0 and e.key not in LABELS]
+                   and _dev_time(e) > 0 and e.key not in LABELS
+                   and not e.key.startswith("ipm-")]
         busy_us = sum(_dev_time(e) for e in kernels)
         print(f"[{solver}] signal {int(res.signal)} iterations "
               f"{int(res.iter_count)}; unprofiled walls (s) "

@@ -184,9 +184,14 @@ def test_cli_printout_matches_jax(argv):
     assert "Converged to Ktol tolerance" in got
 
 
-def test_cli_profile_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cli.main(["7", "--device", "cpu", "--profile", "trace"])
+def test_cli_profile_names_the_roadmap(tmp_path):
+    """``--profile LOGDIR`` is ported: the solve prints as without it and
+    writes a trace into LOGDIR."""
+    _, got = _run(cli.main, ["7", "--seed", "42", "--device", "cpu",
+                             "--profile", str(tmp_path)])
+    _, want = _run(cli.main, ["7", "--seed", "42", "--device", "cpu"])
+    _same_text(got, want)
+    assert len(list(tmp_path.glob("*.json"))) == 1
     with pytest.raises(SystemExit):
         _run(cli.main, ["11", "--device", "cpu"])
 

@@ -343,3 +343,49 @@ def test_lstsq_minnorm_matches_jax(kind, dtype):
         err = np.linalg.norm(got - want, axis=-1) / np.linalg.norm(want,
                                                                    axis=-1)
         assert np.all(err <= rtol), (kind, dtype, err)
+
+
+# a KKT system (D = 2, M = 1, float32) whose first pivot sits one ulp-level
+# cancellation from zero once the primal block is shifted by delta0: the
+# escalation accepts that factorization on inertia alone, the refined
+# solve's backward error stays above sqrt(eps), and the residual gate
+# escalates once more (to 10 delta0)
+GATE_H = [[-0.00034526691888459027, 0.0, 6.94640588760376],
+          [0.0, 0.00023614568635821342, 0.0007139604422263801],
+          [6.94640588760376, 0.0007139604422263801, 0.0]]
+GATE_G = [-2.8919763565063477, -0.0004925798857584596, -4.243302345275879]
+
+
+@pytest.mark.parametrize("want_solver", [False, True])
+def test_residual_gate_fires_on_the_port_path(want_solver, monkeypatch):
+    """The residual gate's escalation on the port's own factor and solve
+    (the plain versions, bitwise those of the kernels) against the JAX
+    package's decision on the same system, through its Pallas kernels in
+    interpret mode: the same delta_new (10 delta0) and retries (1), the
+    direction within the float32 tolerance, and a stable backward error
+    against the system actually solved."""
+    cfg = JCfg(float_dtype="float32")
+    kw = dict(nvar=2, neq=1, nineq=0, eps=cfg.eps, reg_coef=cfg.reg_coef,
+              eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0, max_retries=20)
+    H, g = np.asarray(GATE_H, np.float32), np.asarray(GATE_G, np.float32)
+    monkeypatch.setattr(pk, "_lane_dispatch", lambda n, b, dt: True)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.jit(lambda H_, g_: j_reg(
+            H_, g_, jnp.zeros((), H_.dtype), jnp.asarray(0.1, H_.dtype),
+            method="ldlt", want_solver=want_solver, **kw)[:3])(
+                jnp.asarray(H), jnp.asarray(g))
+    solves = []
+    solve_small = TL.ldlt_solve_small
+    monkeypatch.setattr(TL, "ldlt_solve_small",
+                        lambda *a, **k: solves.append(1) or solve_small(*a,
+                                                                        **k))
+    got = t_reg(torch.tensor(H[None]), torch.tensor(g[None]),
+                torch.zeros(1), torch.full((1,), 0.1),
+                want_solver=want_solver, **kw)
+    # one refined solve (2 substitutions) before the gate, one per firing
+    assert len(solves) == 4
+    np.testing.assert_allclose(float(got[1][0]), 10 * cfg.delta0, rtol=1e-6)
+    _check([t.numpy() for t in got[:3]],
+           [[np.asarray(w) for w in want]], "float32")
+    _bkw_ok(H.astype(np.float64), g.astype(np.float64), got[0][0].numpy(),
+            got[1][0], 2, "float32")

@@ -111,9 +111,14 @@ def test_example7_transcript_pin():
     (dict(trace_metrics=True), "trace_metrics"),
 ])
 def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        solve_batch(make_qp_problem(2, 1), torch.zeros(1, 2),
-                    IPMConfig(**kw))
+    """No IPMConfig option raises any more: ``trace_metrics``, the last
+    that did, now returns the per-iteration history of every instance."""
+    cfg = IPMConfig(verbosity=0, **kw)
+    assert getattr(cfg, match)
+    x0 = torch.as_tensor(np.array([[0.2, 0.5, 0.3], [0.3, 0.3, 0.4]]))
+    res = solve_batch(T_REF[7].make(), x0, cfg)
+    assert res.hist.kkt.shape == (2, cfg.niter * cfg.miter, 4)
+    assert np.all(np.isin(res.signal.numpy(), (1, 2)))
 
 
 def test_config_carries_across():
@@ -134,7 +139,14 @@ def test_port_never_imports_jax():
             "pyipm_tpu_torch.ops.small_ldlt, pyipm_tpu_torch.ops._build, "
             "pyipm_tpu_torch.ops.large_ldlt, pyipm_tpu_torch.api, "
             "pyipm_tpu_torch.cli, pyipm_tpu_torch.core.lbfgs, "
-            "pyipm_tpu_torch.__main__; "
+            "pyipm_tpu_torch.__main__, pyipm_tpu_torch.parallel.fleet, "
+            "pyipm_tpu_torch.utils.profiling, "
+            "pyipm_tpu_torch.utils.checkpoint, "
+            "pyipm_tpu_torch.models.applications, "
+            "pyipm_tpu_torch.examples.quickstart, "
+            "pyipm_tpu_torch.examples.batched_fleet, "
+            "pyipm_tpu_torch.examples.heterogeneous_fleet, "
+            "pyipm_tpu_torch.examples.mpc_receding_horizon; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'pyipm_tpu.')) "
             "or m == 'pyipm_tpu']; "
