@@ -59,7 +59,34 @@ Phases, each raising on failure:
      report), and ``python -m pyipm_tpu_torch 7 --profile DIR``;
  18. kernels 1-2 against their plain versions, as in phase 3, at every
      size n that a run of phases 4-17 launched them at and phase 3 did
-     not check (phase 3 checks phase 16's sizes at its batch of 2,048).
+     not check (phase 3 checks phase 16's sizes at its batch of 2,048);
+ 19. ``batched_reg_factor`` at (65536, 16), (16384, 17), (4096, 256) and
+     (256, 1024) on blocks with wrong inertia (and eq blocks to
+     regularize) against the same call on the plain versions (shifts,
+     retries bitwise; backward error no worse); kernel 1 bitwise at
+     (65536, 16) and (16384, 17), the batched kernel 3 at B = 256 and 1,
+     panel by panel; their timings;
+ 20. not run: the million-variable separable NLP (K = 4096, d = 256,
+     mc = 8; the unrolled branch, no kernel) in float32 ends at signal -1,
+     its stationarity norm stalled at the float32 error of its own
+     evaluation (ROADMAP Queue 3; ``scripts/schur_f32_floor.py`` and
+     ``scripts/profile_schur.py`` measure it);
+ 21. the block-separable Schur solver on a million variables as K =
+     65,536 blocks of d = 16, mc = 4 without refinement, float32 (kernel 1
+     at (65536, 16));
+ 22. K = 256 blocks of d = 1024, mc = 8, float32 (the batched kernel 3);
+ 23. resource allocation (16,384 agents x 16), cap 'ineq' under
+     'adaptive' and 'mehrotra', cap 'eq' in float64; general block NLPs
+     (K = 16,384, d = 3) with nonlinear and linear coupling; a ragged
+     one; the capped one paused by ``run_budget(3)``, saved, restored and
+     resumed; kernel 1 held to its plain version at the new sizes;
+ 24. two ranks on the card through ``launch --spawn 2`` on gloo (NCCL
+     refuses two ranks on one card): phase 21's instance at K = 8,192
+     against one process, and examples/distributed_fleet.py at 2 ranks
+     against 1.
+Phases 21-23 each print the wall, iterations, flat steps, host syncs,
+all-reduces, kernel launches by shape and the device's busy share over
+the first 3 inner iterations of a second, profiled solve.
 Each kernel is timed twice: ``ms``, CUDA events around one wrapper call
 (what the path sees, host enqueue included), and ``device_ms``, the
 kernel's own device time per launch from ``torch.profiler``, with the
@@ -270,7 +297,8 @@ HELD, SEEN = set(), set()
 def reset(*counters):
     for counts in counters:
         SEEN.update(k for k, c in counts.items()
-                    if c and isinstance(k, tuple))
+                    if c and isinstance(k, tuple)
+                    and k[0] in ("factor", "solve"))
         for k in counts:
             counts[k] = 0
 
@@ -1295,6 +1323,464 @@ def _traced(trace, logdir, solve_batch, problem, x0, cfg, data):
         return solve_batch(problem, x0, cfg, params=data)
 
 
+# ----------------------------------------------------------------------
+# phases 19-24: the block-separable Schur solver and what it stands on
+SCHUR_FACTOR_SHAPES = ((65_536, 16, 0), (16_384, 17, 1), (4096, 256, 0),
+                       (256, 1024, 0))
+WEAK = dict(K=65_536, d=16, mc=4)            # schur_weak_scaling.json
+LARGE = dict(K=256, d=1024, mc=8)            # schur_largeblock_262k.json
+GENERAL_K, RESOURCE_K, RESOURCE_D = 16_384, 16_384, 16
+RANKS_K, RANKS_TIMEOUT_S = 8192, 400         # phase 24: 4,096 a rank
+
+
+@contextlib.contextmanager
+def plain_kernels(lin, sl, ll):
+    """The Schur path's kernel wrappers swapped for their plain versions
+    (kernel 1 and kernel 3, as ``ops/linalg`` calls them)."""
+    saved = lin.ldlt_factor_small, lin.panel_ldlt
+    lin.ldlt_factor_small = sl.ldlt_factor_small_ref
+    lin.panel_ldlt = ll.panel_ldlt_ref
+    try:
+        yield
+    finally:
+        lin.ldlt_factor_small, lin.panel_ldlt = saved
+
+
+def busy_share(fn):
+    """(result, device busy ms, wall s, idle share) of one call of ``fn``
+    under ``torch.profiler``: the device's self time (kernels, copies,
+    memsets) over the call's wall (the profiler's own cost included in
+    the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only; the solver's "ipm-*" scopes show on the
+    # device too, as annotation spans over kernels already counted
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not e.key.startswith("ipm-"))
+    return out, us / 1e3, wall, 1.0 - us / 1e6 / wall
+
+
+def schur_blocks(gen, Bn, n, neq, device):
+    """Bn f32 condensed blocks [[W, Je^T], [Je, 0]] made on the card:
+    W = G G^T/d + I, and W - 2I (eigenvalues in about [-1, 3]: the wrong
+    inertia, escalated) for every 5th block; with neq > 0 a zero row in
+    Je of every 7th block (the eq regularization)."""
+    d = n - neq
+    G = torch.randn(Bn, d, d, generator=gen, device=device) / d ** 0.5
+    eye = torch.eye(d, device=device)
+    bad = (torch.arange(Bn, device=device) % 5 == 2)[:, None, None]
+    W = G @ G.mT + eye - 2.0 * eye * bad
+    H = torch.zeros(Bn, n, n, device=device)
+    H[:, :d, :d] = W
+    if neq:
+        Je = torch.randn(Bn, neq, d, generator=gen, device=device)
+        Je[torch.arange(Bn, device=device) % 7 == 3, 0] = 0.0
+        H[:, d:, :d] = Je
+        H[:, :d, d:] = Je.mT
+    return (H + H.mT) / 2
+
+
+def normwise_backward_error(A, x, b):
+    """Per block ||A x - b|| / (||A||_F ||x|| + ||b||), in float64."""
+    A, x, b = A.double(), x.double(), b.double()
+    r = torch.linalg.vector_norm(A @ x - b, dim=(-2, -1))
+    return r / (torch.linalg.matrix_norm(A) * torch.linalg.vector_norm(
+        x, dim=(-2, -1)) + torch.linalg.vector_norm(b, dim=(-2, -1)))
+
+
+def schur_factor_phase(lin, sl, ll, cfg, device):
+    """Phase 19: ``batched_reg_factor`` with the kernels against the same
+    call on the plain versions, and kernels 1 and 3 bitwise at the Schur
+    shapes; timings of kernel 1 at (65536, 16), (16384, 17) and of the
+    batched kernel 3 at (256, 128, 128)."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    kw = dict(eps=cfg.eps, reg_coef=cfg.reg_coef, eta=cfg.eta, beta=cfg.beta,
+              delta0=cfg.delta0, max_retries=cfg.max_reg_retries)
+    mu = torch.tensor(0.1, device=device)
+    out = {}
+    for Bn, n, neq in SCHUR_FACTOR_SHAPES:
+        H = schur_blocks(gen, Bn, n, neq, device)
+        delta = torch.zeros(Bn, device=device)
+        delta[::3] = 1e-3
+        b = torch.randn(Bn, n, 2, generator=gen, device=device)
+        res = {}
+        for name, ctx in (("kernel", contextlib.nullcontext()),
+                          ("plain", plain_kernels(lin, sl, ll))):
+            with ctx:
+                reset(sl.LAUNCHES, sl.LAUNCHES_BY_N, ll.LAUNCHES,
+                      ll.LAUNCHES_BY_B)
+                solve, dn, r, (da, eq) = lin.batched_reg_factor(
+                    H, delta, mu, neq=neq, **kw)
+                x = solve(b)
+                torch.cuda.synchronize()
+                res[name] = dict(x=x, dn=dn, r=r, da=da, eq=eq,
+                                 k1=sl.LAUNCHES["factor"],
+                                 k3={str(k[1]): v for k, v in
+                                     ll.LAUNCHES_BY_B.items() if v})
+        kr, pr = res["kernel"], res["plain"]
+        for k in ("dn", "da", "eq"):
+            if not same_bits(kr[k], pr[k]):
+                raise AssertionError(f"batched_reg_factor ({Bn}, {n}): "
+                                     f"{k} differs from the plain path's")
+        if kr["r"] != pr["r"] or kr["r"] == 0:
+            raise AssertionError(f"batched_reg_factor ({Bn}, {n}): retries "
+                                 f"{kr['r']} against {pr['r']}")
+        ex = (torch.arange(n, device=device) < n - neq).float()
+        A = (H + kr["da"][:, None, None] * torch.diag(ex)
+             - kr["eq"][:, None, None] * torch.diag(1 - ex))
+        bk = normwise_backward_error(A, kr["x"], b)
+        bp = normwise_backward_error(A, pr["x"], b)
+        worst = float((bk / torch.clamp(bp, min=n * cfg.eps)).max())
+        if not worst <= 1.0 + 1e-6:
+            raise AssertionError(f"batched_reg_factor ({Bn}, {n}): backward "
+                                 f"error {float(bk.max())} above the plain "
+                                 f"path's {float(bp.max())}")
+        bad = int((kr["da"] > 0).sum())
+        print(f"  ok batched_reg_factor ({Bn}, {n}), neq {neq}: delta_new, "
+              f"applied shifts and eq shifts bitwise equal to the plain "
+              f"path's, {kr['r']} retries ({bad} blocks escalated, "
+              f"{int((kr['eq'] > 0).sum())} eq-regularized); backward error "
+              f"max {float(bk.max()):.3e} (plain {float(bp.max()):.3e}, "
+              f"n eps {n * cfg.eps:.3e}); kernel 1 launches "
+              f"{kr['k1']}, kernel 3 launches by B {kr['k3']}", flush=True)
+        out[f"{Bn}x{n}"] = dict(retries=kr["r"], escalated=bad,
+                                backward_error=float(bk.max()),
+                                kernel1_launches=kr["k1"],
+                                kernel3_launches_by_b=kr["k3"])
+        del H, res, kr, pr, A
+
+    # the kernels themselves, bitwise at these shapes
+    rec = {}
+    for Bn, n in ((65_536, 16), (16_384, 17)):
+        A = rand_sym(torch.Generator().manual_seed(n), Bn, n, torch.float32,
+                     device)
+        L, d = sl.ldlt_factor_small(A)
+        Lr, dr = sl.ldlt_factor_small_ref(A)
+        if not (same_bits(L, Lr) and same_bits(d, dr)):
+            raise AssertionError(f"kernel 1 at ({Bn}, {n}) differs from "
+                                 f"its plain version")
+        rec[f"ldlt_factor_small_{Bn}x{n}"] = dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: sl.ldlt_factor_small(A), REPS),
+            device_ms=device_ms(lambda: sl.ldlt_factor_small(A),
+                                ("ldlt_factor_kernel",)),
+            plain_ms=cuda_ms(lambda: sl.ldlt_factor_small_ref(A), 3),
+            library_ms=None, bound=factor_bound(Bn, n), shape=[Bn, n])
+        print(f"  ok kernel 1 at ({Bn}, {n}): bitwise equal to "
+              f"ldlt_factor_small_ref", flush=True)
+    P = rand_sym(torch.Generator().manual_seed(7), 256, 128, torch.float32,
+                 device)
+    for Bn in (256, 1):
+        Pb = P[:Bn].contiguous()
+        L, d = ll.panel_ldlt(Pb)
+        for i in range(Bn):
+            Lr, dr = ll.panel_ldlt_ref(Pb[i])
+            if not (same_bits(L[i], Lr) and same_bits(d[i], dr)):
+                raise AssertionError(f"batched kernel 3 (B = {Bn}) panel "
+                                     f"{i} differs from panel_ldlt_ref")
+        L1, d1 = ll.panel_ldlt(Pb[0])
+        if not (same_bits(L1, L[0]) and same_bits(d1, d[0])):
+            raise AssertionError("kernel 3 on one panel differs from the "
+                                 "same panel in a batch")
+        print(f"  ok batched kernel 3 at ({Bn}, 128, 128): bitwise equal "
+              f"to panel_ldlt_ref panel by panel", flush=True)
+    rec["panel_ldlt_batched"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: ll.panel_ldlt(P), REPS),
+        device_ms=device_ms(lambda: ll.panel_ldlt(P), ("panel_ldlt_kernel",)),
+        plain_ms=cuda_ms(lambda: ll.panel_ldlt_ref(P), 3), library_ms=None,
+        bound=factor_bound(256, 128), shape=[256, 128, 128])
+    for name, r in rec.items():
+        print(f"  f32 {name} at {r['shape']}: {r['ms']:.4f} ms per call, "
+              f"device {r['device_ms'][0]:.4f} ms per launch "
+              f"({r['device_ms'][2]} launches per call, by "
+              f"{r['device_ms'][1]}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.5f} ms by {r['bound'][1]}", flush=True)
+    reset(sl.LAUNCHES, sl.LAUNCHES_BY_N, ll.LAUNCHES, ll.LAUNCHES_BY_B)
+    return out, rec
+
+
+def block_solve(fn, x0, theta, ccdata, counters, sl, ll, _sync, what,
+                signals=(1,), profile_iters=3):
+    """One timed solve of a block solver (its counters reset just before),
+    then its first ``profile_iters`` inner iterations again under
+    ``torch.profiler`` for the device's busy share.  Raises unless the
+    signal is one of ``signals`` (and, at signal 1, every KKT norm is at
+    most Ktol)."""
+    red = fn.reducer
+    calls0 = red.total
+    res, wall = timed(lambda: fn(x0, theta, ccdata), counters)
+    calls = red.total - calls0
+    sig, its = int(res.signal), int(res.iter_count)
+    kkt = res.kkt.cpu().numpy()
+    out = dict(signal=sig, iters=its, kkt=kkt.tolist(), wall_s=wall,
+               flat_steps=_sync.COUNTS["flat_steps"],
+               host_syncs=_sync.COUNTS["host_syncs"],
+               all_reduces=calls, all_reduces_per_iter=calls / max(its, 1),
+               kernel1_by_n=by_n(sl),
+               kernel3_by_b={str(k[1]): v
+                             for k, v in ll.LAUNCHES_BY_B.items() if v},
+               launches={**sl.LAUNCHES, **ll.LAUNCHES},
+               max_memory_bytes=torch.cuda.max_memory_allocated())
+    st0 = fn.init_state(x0, theta, ccdata)
+    _, busy, pwall, idle = busy_share(
+        lambda: fn.run_budget(st0, theta, ccdata, profile_iters))
+    out.update(profiled_iters=profile_iters, busy_ms=busy,
+               profiled_wall_s=pwall, idle_share=idle)
+    print(f"  {what}: signal {sig} iterations {its} kkt "
+          f"{np.array2string(kkt, precision=3)} wall {wall:.3f} s flat "
+          f"steps {out['flat_steps']} host syncs {out['host_syncs']} "
+          f"all-reduces {calls} ({out['all_reduces_per_iter']:.2f} an "
+          f"iteration) kernel 1 launches by n {out['kernel1_by_n']} kernel "
+          f"3 launches by B {out['kernel3_by_b']} max memory "
+          f"{out['max_memory_bytes']} B; first {profile_iters} iterations "
+          f"profiled: device busy {busy:.1f} ms of {pwall:.3f} s (idle "
+          f"{100 * idle:.1f}%)", flush=True)
+    if sig not in signals:
+        raise AssertionError(f"{what}: signal {sig}, kkt {kkt}")
+    if sig == 1 and not np.all(kkt <= fn.config.Ktol):
+        raise AssertionError(f"{what}: signal 1 with kkt {kkt} above Ktol")
+    if not bool(torch.isfinite(res.x).all()):
+        raise AssertionError(f"{what}: x is not finite")
+    return res, out
+
+
+def separable_phase(S, cfg, inst, counters, sl, ll, _sync, device,
+                    need_k1=False, need_k3=False):
+    """Phases 21-22: ``sample_separable`` at K, d, mc through the
+    separable solver, world size 1, in ``cfg``'s dtype."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    spec, data, x0 = S.sample_separable(gen, inst["K"], inst["d"],
+                                        inst["mc"], dtype=cfg.torch_dtype,
+                                        device=device)
+    fn = S.make_block_solver(S.separable_block_spec(spec), None, cfg,
+                             device=device)
+    theta = {"user": data.theta, "A": data.A, "lb": data.lb}
+    torch.cuda.reset_peak_memory_stats()
+    res, out = block_solve(fn, x0, theta, {"b": data.b}, counters, sl, ll,
+                           _sync, f"K={inst['K']} d={inst['d']} "
+                           f"mc={inst['mc']} ({inst['K'] * inst['d']} "
+                           f"variables, {cfg.float_dtype})")
+    if need_k1 and not out["kernel1_by_n"].get("factor", {}).get(
+            str(inst["d"])):
+        raise AssertionError(f"kernel 1 was not launched at n = {inst['d']}:"
+                             f" {out['kernel1_by_n']}")
+    if need_k3 and not out["kernel3_by_b"].get(str(inst["K"])):
+        raise AssertionError(f"the batched kernel 3 was not launched at B = "
+                             f"{inst['K']}: {out['kernel3_by_b']}")
+    del res, data, theta
+    return out
+
+
+def general_phase(S, A, cfg, counters, sl, ll, _sync, device):
+    """Phase 23: resource allocation (16,384 agents x 16 variables, 4
+    resources, 1 equality: n = 17) with a cap under 'adaptive' and
+    'mehrotra', and with a binding pool in float64 (in float32 the JAX
+    package stalls on it too: the border's Tikhonov term sqrt(eps) swamps
+    the pool rows of R_k ~ 1/(K d), ROADMAP Queue 3); the general block
+    NLP (K = 16,384, d = 3) with nonlinear and with linear coupling; the
+    ragged one; and the capped one paused by run_budget(3), saved,
+    restored and resumed."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+    ok = (1, 2)
+    data = A.sample_resource_alloc(gen, RESOURCE_K, RESOURCE_D, nres=4,
+                                   neq=1, device=device)
+    rx0 = torch.ones((RESOURCE_K, RESOURCE_D), device=device)
+    f64 = A.ResourceAllocData(
+        {k: v.double() for k, v in data.theta.items()},
+        {k: v.double() for k, v in data.ccdata.items()})
+    for cap, strat, dat, x0, c in (
+            ("ineq", "adaptive", data, rx0, cfg),
+            ("ineq", "mehrotra", data, rx0, cfg),
+            ("eq", "adaptive", f64, rx0.double(),
+             cfg.replace(float_dtype="float64"))):
+        name = f"resource_{cap}_{strat}_{c.float_dtype}"
+        fn = S.make_block_solver(
+            A.make_resource_alloc_spec(RESOURCE_D, 4, 1, cap=cap), None,
+            c.replace(mu_strategy=strat), device=device)
+        res, out[name] = block_solve(fn, x0, dat.theta, dat.ccdata,
+                                     counters, sl, ll, _sync,
+                                     f"resource allocation cap={cap} "
+                                     f"{strat} {c.float_dtype}", signals=ok)
+        if not out[name]["kernel1_by_n"].get("factor", {}).get("17"):
+            raise AssertionError(f"{name}: kernel 1 was not launched at "
+                                 f"n = 17")
+        pool = torch.einsum("krd,kd->r", dat.theta["R"], res.x)
+        over = float((pool - dat.ccdata["budget"]).abs().max() if cap == "eq"
+                     else (pool - dat.ccdata["budget"]).max())
+        if over > 1e-3 * float(dat.ccdata["budget"].abs().max()):
+            raise AssertionError(f"{name}: the pool is off by {over}")
+    for name, kw in (("general_nonlinear", dict(nonlinear_cc=True)),
+                     ("general_linear", dict(nonlinear_cc=False))):
+        spec, th, cc, x0 = S.sample_block_general(
+            gen, GENERAL_K, 3, me=1, ni=2, p=2, mc=1, dtype=torch.float32,
+            device=device, **kw)
+        fn = S.make_block_solver(spec, None, cfg, device=device)
+        _, out[name] = block_solve(fn, x0, th, cc, counters, sl, ll, _sync,
+                                   f"block NLP K={GENERAL_K} d=3 {name}",
+                                   signals=ok)
+    spec, th, cc, x0, _, _ = S.sample_block_ragged(
+        gen, GENERAL_K, dtype=torch.float32, device=device)
+    fn = S.make_block_solver(spec, None, cfg, device=device)
+    _, out["ragged"] = block_solve(fn, x0, th, cc, counters, sl, ll, _sync,
+                                   f"ragged block NLP K={GENERAL_K}",
+                                   signals=ok)
+
+    # pause -> save -> restore -> resume the capped resource allocation
+    from pyipm_tpu_torch.utils.checkpoint import restore_state, save_state
+    fn = S.make_block_solver(
+        A.make_resource_alloc_spec(RESOURCE_D, 4, 1, cap="ineq"), None, cfg,
+        device=device)
+    straight = out["resource_ineq_adaptive_float32"]
+    st = fn.run_budget(fn.init_state(rx0, data.theta, data.ccdata),
+                       data.theta, data.ccdata, max_new_iters=BUDGET)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "block")
+        save_state(path, st)
+        nbytes = os.path.getsize(path + ".npz")
+        st2 = restore_state(path, fn.init_state(rx0, data.theta,
+                                                data.ccdata))
+    res = fn.finalize(fn.run(st2, data.theta, data.ccdata), data.theta,
+                      data.ccdata)
+    resumed = dict(signal=int(res.signal), iters=int(res.iter_count),
+                   checkpoint_bytes=nbytes)
+    print(f"  capped resource allocation paused at {BUDGET}, saved "
+          f"({nbytes} B), restored, resumed: signal {resumed['signal']} "
+          f"iterations {resumed['iters']} (straight: {straight['signal']}, "
+          f"{straight['iters']})", flush=True)
+    if (resumed["signal"], resumed["iters"]) != (straight["signal"],
+                                                 straight["iters"]):
+        raise AssertionError("the resumed block solve differs from the "
+                             "straight one")
+    out["resumed"] = resumed
+    return out
+
+
+def rank_worker(out_path, device="cuda"):
+    """Phase 24's worker, one rank of ``launch --spawn N``: joins on gloo
+    (NCCL refuses two ranks on one card; gloo all-reduces the card's
+    tensors through the host), solves phase 21's instance at K = RANKS_K
+    split over the ranks, one iteration at a time to count each
+    iteration's all-reduces, and rank 0 writes the result."""
+    from pyipm_tpu_torch import IPMConfig
+    from pyipm_tpu_torch.parallel import distributed as dist
+    from pyipm_tpu_torch.parallel import schur as S
+    device = torch.device(device)
+    dist.initialize(device=device, backend="gloo")
+    mesh = dist.global_solver_mesh(batch=1, model=dist.world_size(),
+                                   device=device)
+    out = ranks_solve(S, IPMConfig(float_dtype="float32", verbosity=0),
+                      mesh, device)
+    if dist.rank() == 0:
+        np.savez(out_path, **out)
+    dist.shutdown()
+
+
+def ranks_solve(S, cfg, mesh, device):
+    """Phase 21's instance at K = RANKS_K (its refinement setting), solved
+    one inner iteration at a time: x, signal, iterations, wall and the
+    all-reduces of each iteration."""
+    cfg = cfg.replace(schur_refine_steps=0, schur_refine_guard=False)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    spec, data, x0 = S.sample_separable(gen, RANKS_K, WEAK["d"], WEAK["mc"],
+                                        device=device)
+    fn = S.make_block_solver(S.separable_block_spec(spec), mesh, cfg,
+                             device=device)
+    theta, cc = {"user": data.theta, "A": data.A, "lb": data.lb}, \
+        {"b": data.b}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = fn.init_state(x0, theta, cc)
+    calls = []
+    while int(st.signal[0]) == 0 and int(st.outer[0]) < cfg.niter:
+        before = fn.reducer.total
+        st = fn.run_budget(st, theta, cc, max_new_iters=1)
+        calls.append(fn.reducer.total - before)
+    res = fn.finalize(st, theta, cc)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(x=res.x.cpu().numpy(), signal=int(res.signal),
+                iters=int(res.iter_count), calls=np.asarray(calls),
+                wall_s=time.perf_counter() - t0)
+
+
+def ranks_phase(S, cfg, device):
+    """Phase 24: two ranks on the card through the launcher (gloo), phase
+    21's instance at K = 8,192 against one process, and the batch-axis
+    fleet of examples/distributed_fleet.py at 2 ranks against 1."""
+    one = ranks_solve(S, cfg, None, device)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ranks.npz")
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "pyipm_tpu_torch.parallel.launch",
+             "--spawn", "2", "--timeout", str(RANKS_TIMEOUT_S),
+             os.path.abspath(__file__), "--rank-worker", path,
+             device.type],
+            cwd=repo, check=True, timeout=RANKS_TIMEOUT_S + 60)
+        launch_s = time.perf_counter() - t0
+        with np.load(path) as f:
+            two = dict(f)
+        fleets = {}
+        for n in (1, 2):
+            fp = os.path.join(tmp, f"fleet{n}.npz")
+            subprocess.run(
+                [sys.executable, "-m", "pyipm_tpu_torch.parallel.launch",
+                 "--spawn", str(n), "--timeout", str(RANKS_TIMEOUT_S),
+                 "pyipm_tpu_torch/examples/distributed_fleet.py",
+                 "--device", device.type, "--backend", "gloo", "--out",
+                 fp],
+                cwd=repo, check=True, timeout=RANKS_TIMEOUT_S + 60)
+            with np.load(fp) as f:
+                fleets[n] = dict(f)
+    x1, x2 = one["x"], two["x"]
+    dx = float(np.max(np.abs(x2 - x1) / (1 + np.abs(x1))))
+    out = dict(signal_1=one["signal"], iters_1=one["iters"],
+               signal_2=int(two["signal"]), iters_2=int(two["iters"]),
+               max_dx=dx, wall_1_s=one["wall_s"],
+               wall_2_s=float(two["wall_s"]), launch_2_s=launch_s,
+               all_reduces_per_iter_1=one["calls"].tolist(),
+               all_reduces_per_iter_2=two["calls"].tolist())
+    print(f"  K={RANKS_K} d={WEAK['d']} mc={WEAK['mc']}: 1 rank signal "
+          f"{one['signal']} iterations {one['iters']} wall "
+          f"{one['wall_s']:.3f} s; 2 ranks (gloo) signal {out['signal_2']} "
+          f"iterations {out['iters_2']} wall {out['wall_2_s']:.3f} s (the "
+          f"launch {launch_s:.1f} s); max |dx|/(1+|x|) {dx:.3e}; "
+          f"all-reduces an iteration {out['all_reduces_per_iter_2']}",
+          flush=True)
+    if (out["signal_2"], out["iters_2"]) != (one["signal"], one["iters"]):
+        raise AssertionError("two ranks differ from one in signal or "
+                             "iterations")
+    if one["signal"] != 1 or not dx <= 1e-4:
+        raise AssertionError(f"two ranks: signal {one['signal']}, max dx "
+                             f"{dx}")
+    if out["all_reduces_per_iter_1"] != out["all_reduces_per_iter_2"]:
+        raise AssertionError("two ranks asked for other all-reduces")
+    same = all(np.array_equal(fleets[1][k], fleets[2][k])
+               for k in ("signal", "iter_count"))
+    out["fleet_equal"] = same
+    out["fleet_max_dx"] = float(np.max(np.abs(fleets[1]["x"]
+                                              - fleets[2]["x"])))
+    print(f"  distributed_fleet at 2 ranks against 1: signals and "
+          f"iterations equal {same}, max |dx| {out['fleet_max_dx']:.3e}",
+          flush=True)
+    if not same:
+        raise AssertionError("the batch-axis fleet at 2 ranks differs from "
+                             "1 rank")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -1579,6 +2065,35 @@ def main() -> int:
           f"{sorted(n for k, n in SEEN if k == 'solve')}; held here at n = "
           f"{held_late} (B = {PATH_B}), the rest in phase 3", flush=True)
 
+    counters = (sl.LAUNCHES, sl.LAUNCHES_BY_N, ll.LAUNCHES,
+                ll.LAUNCHES_BY_B, _sync.COUNTS)
+    from pyipm_tpu_torch.models import applications as apps
+    from pyipm_tpu_torch.parallel import schur as S
+    with matmul_precision(cfg.matmul_precision):
+        phase("19 batched_reg_factor at the Schur shapes, kernels 1 and 3 "
+              "against their plain versions")
+        schur_factor, schur_kernels = schur_factor_phase(lin, sl, ll, cfg,
+                                                         device)
+    phase(f"21 a million variables as K={WEAK['K']} blocks of "
+          f"d={WEAK['d']}, mc={WEAK['mc']}, no refinement, float32")
+    schur = {"weak": separable_phase(
+        S, cfg.replace(schur_refine_steps=0, schur_refine_guard=False),
+        WEAK, counters, sl, ll, _sync, device, need_k1=True)}
+    phase(f"22 large blocks (K={LARGE['K']}, d={LARGE['d']}, "
+          f"mc={LARGE['mc']}), float32: the batched kernel 3")
+    schur["large"] = separable_phase(S, cfg, LARGE, counters, sl, ll, _sync,
+                                     device, need_k3=True)
+    phase("23 general block NLPs: resource allocation, nonlinear and "
+          "linear coupling, ragged, pause and resume")
+    schur["general"] = general_phase(S, apps, cfg, counters, sl, ll, _sync,
+                                     device)
+    reset(sl.LAUNCHES_BY_N)
+    held_schur = hold_seen_sizes(sl, device)
+    print(f"  kernel 1 held to its plain version at the new sizes n = "
+          f"{held_schur} (B = {PATH_B})", flush=True)
+    phase("24 two ranks on the card (launch --spawn 2, gloo)")
+    schur["ranks"] = ranks_phase(S, cfg, device)
+
     def row(name, replaces, source, launches_, rec_, shape):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_,
@@ -1610,6 +2125,17 @@ def main() -> int:
             "pyipm_tpu_torch/csrc/panel_ldlt.cu",
             sum(p["panel_ldlt"] for p in path_launches.values()),
             big["panel_ldlt"], big["panel_ldlt"]["shape"]),
+        row("panel_ldlt_batched", "pyipm_tpu/ops/pallas_ldlt.py:198",
+            "pyipm_tpu_torch/csrc/panel_ldlt.cu",
+            schur["large"]["launches"]["panel_ldlt"],
+            schur_kernels["panel_ldlt_batched"], [LARGE["K"], 128, 128]),
+        row("ldlt_factor_small_schur", "pyipm_tpu/ops/pallas_ldlt.py:49",
+            small, schur["weak"]["launches"]["factor"],
+            schur_kernels["ldlt_factor_small_65536x16"], [65_536, 16]),
+        row("ldlt_factor_small_n17", "pyipm_tpu/ops/pallas_ldlt.py:49",
+            small, schur["general"]["resource_ineq_adaptive_float32"][
+                "launches"]["factor"],
+            schur_kernels["ldlt_factor_small_16384x17"], [16_384, 17]),
         row("bwd_sweep_panels", "pyipm_tpu/ops/pallas_ldlt.py:523",
             "pyipm_tpu_torch/csrc/bwd_sweep_panels.cu",
             path_launches["ldlt"]["bwd_sweep_panels"],
@@ -1656,6 +2182,8 @@ def main() -> int:
         "wave_fleet": wave, "budget_resume": budget, "rescue": rescue,
         "mixed_fleet": mixed, "observability": observe,
         "sizes_held_in_phase_18": held_late,
+        "schur_factor": schur_factor, "schur": schur,
+        "sizes_held_after_phase_23": held_schur,
         "total_s": time.perf_counter() - T_START}
     print(f"chip_smoke: all phases passed in {record['total_s']:.1f} s")
     print(smi)
@@ -1667,4 +2195,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(*sys.argv[2:4]))
     sys.exit(main())

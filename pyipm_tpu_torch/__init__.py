@@ -3,8 +3,8 @@
 The same line-search primal-dual interior-point method as ``pyipm_tpu``,
 batch first on PyTorch tensors, with hand-written Hopper kernels for the
 batched small LDL^T factorization and solve (``csrc/small_ldlt.cu``) and,
-for KKT systems above 128, the panel LDL^T of the blocked factorization
-(``csrc/panel_ldlt.cu``) and the backward sweeps
+for KKT systems above 128 and the Schur solver's large blocks, the panel
+LDL^T of the blocked factorization (``csrc/panel_ldlt.cu``) and the backward sweeps
 (``csrc/bwd_sweep_panels.cu``, ``csrc/bwd_sweep_blocks.cu``).
 Imports torch and never jax.
 
@@ -19,6 +19,9 @@ Public API:
   - `make_wave_batch_solver` — a fleet that retires converged instances
     in waves; `rescue_failures` — re-solve a fleet's failures;
     `solve_fleet` — mixed problems and shapes in one call.
+  - `BlockNLP`, `make_block_solver` — one large block-separable NLP,
+    its blocks split over the ranks of a process mesh (bordered Schur
+    complement; ``parallel/schur.py``, ``parallel/launch.py``).
   - `MetricsHistory` — per-iteration histories (``trace_metrics``);
     ``utils.profiling`` and ``utils.checkpoint`` — scopes, traces,
     timings, and pause/save/restore/resume of a solve.
@@ -37,6 +40,7 @@ from pyipm_tpu_torch.parallel.batch import (
     make_batch_solver, make_wave_batch_solver, rescue_failures, solve_batch,
 )
 from pyipm_tpu_torch.parallel.fleet import solve_fleet
+from pyipm_tpu_torch.parallel.schur import BlockNLP, make_block_solver
 
 __version__ = "0.1.0"
 
@@ -57,4 +61,6 @@ __all__ = [
     "make_wave_batch_solver",
     "rescue_failures",
     "solve_fleet",
+    "BlockNLP",
+    "make_block_solver",
 ]

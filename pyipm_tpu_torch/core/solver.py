@@ -20,11 +20,19 @@ solve; a single solve is a batch of one, and only it prints the JAX
 solver's progress lines (``verbosity > 0``), at the cost of a host sync per
 line; a fleet prints nothing.
 
-Every piece of loop position lives in the state, so :meth:`BatchSolver.
+Every piece of loop position lives in the state, so :meth:`LoopEngine.
 run_budget` can pause a solve after a number of inner iterations per
-instance and :meth:`BatchSolver.run` resume it exactly: the mechanism of
+instance and :meth:`LoopEngine.run` resume it exactly: the mechanism of
 the wave-compacted fleet (``parallel/batch.py``) and of checkpoints
-(``utils/checkpoint.py``).  ``trace_metrics`` keeps per-iteration
+(``utils/checkpoint.py``).
+
+The loop itself is :class:`LoopEngine` (the JAX package's
+``make_loop_engine``, solver.py:116-264): the muTol inner exits, the Ftol
+placement, the signal taxonomy, the mu schedule, pause and resume and the
+``trace_metrics`` rows live there once.  :class:`BatchSolver` (a fleet)
+and the block-separable Schur solver (``parallel/schur.py``, one instance
+whose loop fields are a batch of one) each supply the iteration body, the
+objective and the centrality statistics.  ``trace_metrics`` keeps per-iteration
 histories (:class:`MetricsHistory`), and the phases carry the profiling
 scopes of ``utils/profiling.py``.
 
@@ -157,20 +165,27 @@ def _empty_history(x, T: int) -> MetricsHistory:
                           *(x.new_zeros((B, T)) for _ in range(4)))
 
 
-def _record(hist: MetricsHistory, ids, sub: SolverState):
-    """Write row ``iter_count - 1`` of each stepped instance ``ids`` (in
-    place: :meth:`BatchSolver._loop` owns the buffers it writes)."""
-    t = sub.iter_count.long() - 1
-    hist.kkt.index_put_((ids, t), sub.kkt)
-    for k in ("mu", "nu", "alpha", "delta"):
-        getattr(hist, k).index_put_((ids, t), getattr(sub, k))
+def _record(hist: MetricsHistory, ids, t, row: MetricsHistory):
+    """Write row ``t`` (the stepped instances' ``iter_count - 1``) of each
+    stepped instance ``ids`` (in place: :meth:`LoopEngine._loop` owns the
+    buffers it writes)."""
+    for k in MetricsHistory._fields:
+        getattr(hist, k).index_put_((ids, t), getattr(row, k))
+
+
+def _leaves(t):
+    """The tensors of a tensor or (nested) tuple of tensors."""
+    if isinstance(t, tuple):
+        return [u for v in t for u in _leaves(v)]
+    return [t]
 
 
 def _check_finite(sub: SolverState):
     """``enable_nan_debugging``: raise at the first non-finite field, with
     one host sync a step (the field is named on the failure path only)."""
     fields = ("x", "s", "lda", "kkt")
-    bad = torch.stack([~torch.isfinite(getattr(sub, k)).all()
+    bad = torch.stack([torch.stack([~torch.isfinite(t).all()
+                                    for t in _leaves(getattr(sub, k))]).any()
                        for k in fields])
     if _sync.any_true(bad):
         k = fields[int(bad.int().argmax())]
@@ -178,7 +193,130 @@ def _check_finite(sub: SolverState):
                                  f"(enable_nan_debugging)")
 
 
-class BatchSolver:
+class LoopEngine:
+    """The flattened outer/inner interior-point loop over a batch-first
+    :class:`SolverState` (JAX ``make_loop_engine``, solver.py:116-264),
+    generic over the iteration body.
+
+    Subclasses set ``config`` (a resolved :class:`IPMConfig`), ``echo``,
+    ``has_ineq`` (the Ftol placement and the barrier schedule),
+    ``unconstrained`` (the muTol exit is then convergence) and
+    ``lazy_epilogue`` (a host sync skips an outer epilogue no instance
+    takes: for a solver whose epilogue pays collectives), and define:
+
+      - ``inner_iter(st, p)``: one primal-dual iteration of every instance
+        of ``st``, ``iter_count`` bumped;
+      - ``f_val(st, p)``: the (B,) objective, for the Ftol test;
+      - ``centrality_stats(st, p)``: (sum s.li, min s*li, pair count);
+      - ``take(st, ids, p)`` -> (sub-state, its data) and
+        ``put(st, ids, sub)``: gather and scatter the instances ``ids``;
+      - ``history_row(sub)``: the :class:`MetricsHistory` row of stepped
+        instances."""
+
+    lazy_epilogue = False
+
+    def outer_epilogue(self, st: SolverState, ep, p) -> SolverState:
+        """What follows an inner loop (pyipm.py:1776-1814), where ``ep``."""
+        cfg = self.config
+        if cfg.Ftol is not None and self.has_ineq:
+            chk = ep & (st.signal != -2)
+            f_new = self.f_val(st, p)
+            hit = chk & (torch.abs(st.f_past - f_new) <= abs(cfg.Ftol))
+            st = st._replace(
+                signal=torch.where(hit, torch.full_like(st.signal, 2),
+                                   st.signal),
+                f_past=torch.where(chk, f_new, st.f_past))
+        is_last = st.outer >= cfg.niter - 1
+        st = st._replace(signal=torch.where(
+            ep & (st.signal == 0) & is_last,
+            torch.full_like(st.signal, -1), st.signal))
+        if self.has_ineq and cfg.mu_strategy != "mehrotra":
+            # adaptive centrality barrier update (pyipm.py:1804-1814); under
+            # 'mehrotra' mu moves every iteration inside the direction
+            sl, smin, ntot = self.centrality_stats(st, p)
+            mu_new = centrality_mu(sl, smin, ntot, cfg.eps, cfg.mu_floor)
+            st = _merge(st, ep & (st.signal == 0), mu=mu_new)
+        return _merge(st, ep, outer=st.outer + 1,
+                      in_inner=torch.zeros_like(st.in_inner))
+
+    def flat_step(self, st: SolverState, running, p) -> SolverState:
+        """Advance every running instance by one phase step."""
+        cfg = self.config
+        Ktol = cfg.Ktol
+        mo = running & ~st.in_inner
+        mi = running & st.in_inner
+
+        # top-of-outer convergence check (pyipm.py:1663-1667)
+        conv = torch.all(st.kkt <= Ktol, dim=-1)
+        hit = mo & conv
+        enter = mo & ~conv
+        st = _merge(st, hit, signal=torch.ones_like(st.signal),
+                    outer=st.outer + 1)
+        st = _merge(st, enter, inner=torch.zeros_like(st.inner),
+                    inner_done=torch.zeros_like(st.inner_done),
+                    in_inner=torch.ones_like(st.in_inner))
+        if self.echo and self.has_ineq and bool(enter[0]):
+            print(f"OUTER ITERATION {int(st.outer[0]) + 1}")
+
+        # one inner step (pyipm.py:1672-1682): muTol exit or an iteration
+        active = (mi & (st.inner < cfg.miter) & (st.signal == 0)
+                  & ~st.inner_done)
+        mutol = torch.clamp(st.mu, min=Ktol)
+        conv_in = torch.all(st.kkt <= mutol[:, None], dim=-1)
+        stop = active & conv_in
+        if self.unconstrained:
+            st = _merge(st, stop, signal=torch.ones_like(st.signal))
+        st = _merge(st, stop, inner_done=torch.ones_like(st.inner_done))
+        ids = _sync.indices(active & ~conv_in)
+        if ids.numel():
+            # the history is not gathered: each stepped row is written once
+            hist, st = st.hist, st._replace(hist=None)
+            sub = self.inner_iter(*self.take(st, ids, p))
+            if profiling.nan_debugging():
+                _check_finite(sub)
+            st = self.put(st, ids, sub._replace(inner=sub.inner + 1))
+            if hist is not None:
+                _record(hist, ids, sub.iter_count.long() - 1,
+                        self.history_row(sub))
+            st = st._replace(hist=hist)
+
+        done = mi & ((st.inner >= cfg.miter) | (st.signal != 0)
+                     | st.inner_done)
+        if self.lazy_epilogue and not _sync.any_true(done):
+            return st
+        with profiling.annotate("ipm-outer-epilogue", st.x.device):
+            return self.outer_epilogue(st, done, p)
+
+    @_phase
+    def _loop(self, st: SolverState, p, limit=None) -> SolverState:
+        """Flat steps until no instance runs; with ``limit`` (B,) an
+        instance also stops once its ``iter_count`` reaches it."""
+        if st.hist is not None:
+            # the steps write rows in place: into a copy of the caller's
+            st = st._replace(hist=_tree(torch.clone, st.hist))
+        while True:
+            running = (st.outer < self.config.niter) & (st.signal == 0)
+            if limit is not None:
+                running = running & (st.iter_count < limit)
+            if not _sync.any_true(running):
+                return st
+            st = self.flat_step(st, running, p)
+            _sync.COUNTS["flat_steps"] += 1
+
+    def run(self, st: SolverState, p=()) -> SolverState:
+        """Run every instance to the end of its solve."""
+        return self._loop(st, p)
+
+    def run_budget(self, st: SolverState, max_new_iters,
+                   p=()) -> SolverState:
+        """Advance each instance by at most ``max_new_iters`` more inner
+        iterations (its own ``iter_count`` plus the budget, JAX
+        solver.py:246-262), then pause.  ``signal == 0`` means paused; the
+        state resumes exactly under :meth:`run` or :meth:`run_budget`."""
+        return self._loop(st, p, limit=st.iter_count + int(max_new_iters))
+
+
+class BatchSolver(LoopEngine):
     """Batch-first solver for one :class:`Problem` and configuration.
 
     ``solver(x0, params=(), s0=None, lda0=None, mu0=None, nu0=None) ->
@@ -196,6 +334,8 @@ class BatchSolver:
         self.problem = problem
         self.config = cfg.resolve_mu_strategy(problem.nineq)
         self.echo = echo and self.config.verbosity > 0
+        self.has_ineq = problem.nineq > 0
+        self.unconstrained = problem.ncon == 0
 
     # ------------------------------------------------------------------
     def direction(self, st: SolverState, p):
@@ -346,105 +486,23 @@ class BatchSolver:
                 f_past=torch.where(live, f_new, st.f_past))
         return st
 
-    def outer_epilogue(self, st: SolverState, ep, p) -> SolverState:
-        """What follows an inner loop (pyipm.py:1776-1814), where ``ep``."""
-        problem, cfg = self.problem, self.config
-        M, N = problem.neq, problem.nineq
-        if cfg.Ftol is not None and N:
-            chk = ep & (st.signal != -2)
-            f_new = problem.f_val(st.x, p)
-            hit = chk & (torch.abs(st.f_past - f_new) <= abs(cfg.Ftol))
-            st = st._replace(
-                signal=torch.where(hit, torch.full_like(st.signal, 2),
-                                   st.signal),
-                f_past=torch.where(chk, f_new, st.f_past))
-        is_last = st.outer >= cfg.niter - 1
-        st = st._replace(signal=torch.where(
-            ep & (st.signal == 0) & is_last,
-            torch.full_like(st.signal, -1), st.signal))
-        if N and cfg.mu_strategy != "mehrotra":
-            # adaptive centrality barrier update (pyipm.py:1804-1814); under
-            # 'mehrotra' mu moves every iteration inside the direction
-            sli = st.s * st.lda[:, M:]
-            mu_new = centrality_mu(torch.sum(sli, dim=-1),
-                                   torch.amin(sli, dim=-1), N, cfg.eps,
-                                   cfg.mu_floor)
-            st = _merge(st, ep & (st.signal == 0), mu=mu_new)
-        return _merge(st, ep, outer=st.outer + 1,
-                      in_inner=torch.zeros_like(st.in_inner))
+    # the loop engine's hooks
+    def f_val(self, st: SolverState, p):
+        return self.problem.f_val(st.x, p)
 
-    def flat_step(self, st: SolverState, running, p) -> SolverState:
-        """Advance every running instance by one phase step."""
-        problem, cfg = self.problem, self.config
-        Ktol = cfg.Ktol
-        mo = running & ~st.in_inner
-        mi = running & st.in_inner
+    def centrality_stats(self, st: SolverState, p):
+        sli = st.s * st.lda[:, self.problem.neq:]
+        return (torch.sum(sli, dim=-1), torch.amin(sli, dim=-1),
+                self.problem.nineq)
 
-        # top-of-outer convergence check (pyipm.py:1663-1667)
-        conv = torch.all(st.kkt <= Ktol, dim=-1)
-        hit = mo & conv
-        enter = mo & ~conv
-        st = _merge(st, hit, signal=torch.ones_like(st.signal),
-                    outer=st.outer + 1)
-        st = _merge(st, enter, inner=torch.zeros_like(st.inner),
-                    inner_done=torch.zeros_like(st.inner_done),
-                    in_inner=torch.ones_like(st.in_inner))
-        if self.echo and problem.nineq and bool(enter[0]):
-            print(f"OUTER ITERATION {int(st.outer[0]) + 1}")
+    def take(self, st: SolverState, ids, p):
+        return _rows(st, ids), take(p, ids)
 
-        # one inner step (pyipm.py:1672-1682): muTol exit or an iteration
-        active = (mi & (st.inner < cfg.miter) & (st.signal == 0)
-                  & ~st.inner_done)
-        mutol = torch.clamp(st.mu, min=Ktol)
-        conv_in = torch.all(st.kkt <= mutol[:, None], dim=-1)
-        stop = active & conv_in
-        if problem.ncon == 0:
-            st = _merge(st, stop, signal=torch.ones_like(st.signal))
-        st = _merge(st, stop, inner_done=torch.ones_like(st.inner_done))
-        ids = _sync.indices(active & ~conv_in)
-        if ids.numel():
-            # the history is not gathered: each stepped row is written once
-            hist, st = st.hist, st._replace(hist=None)
-            sub = self.inner_iter(_rows(st, ids), take(p, ids))
-            if profiling.nan_debugging():
-                _check_finite(sub)
-            st = _put(st, ids, sub._replace(inner=sub.inner + 1))
-            if hist is not None:
-                _record(hist, ids, sub)
-            st = st._replace(hist=hist)
+    def put(self, st: SolverState, ids, sub: SolverState) -> SolverState:
+        return _put(st, ids, sub)
 
-        done = mi & ((st.inner >= cfg.miter) | (st.signal != 0)
-                     | st.inner_done)
-        with profiling.annotate("ipm-outer-epilogue", st.x.device):
-            return self.outer_epilogue(st, done, p)
-
-    @_phase
-    def _loop(self, st: SolverState, p, limit=None) -> SolverState:
-        """Flat steps until no instance runs; with ``limit`` (B,) an
-        instance also stops once its ``iter_count`` reaches it."""
-        if st.hist is not None:
-            # the steps write rows in place: into a copy of the caller's
-            st = st._replace(hist=_tree(torch.clone, st.hist))
-        while True:
-            running = (st.outer < self.config.niter) & (st.signal == 0)
-            if limit is not None:
-                running = running & (st.iter_count < limit)
-            if not _sync.any_true(running):
-                return st
-            st = self.flat_step(st, running, p)
-            _sync.COUNTS["flat_steps"] += 1
-
-    def run(self, st: SolverState, p=()) -> SolverState:
-        """Run every instance to the end of its solve."""
-        return self._loop(st, p)
-
-    def run_budget(self, st: SolverState, max_new_iters,
-                   p=()) -> SolverState:
-        """Advance each instance by at most ``max_new_iters`` more inner
-        iterations (its own ``iter_count`` plus the budget, JAX
-        solver.py:246-262), then pause.  ``signal == 0`` means paused; the
-        state resumes exactly under :meth:`run` or :meth:`run_budget`."""
-        return self._loop(st, p, limit=st.iter_count + int(max_new_iters))
+    def history_row(self, sub: SolverState) -> MetricsHistory:
+        return MetricsHistory(sub.kkt, sub.mu, sub.nu, sub.alpha, sub.delta)
 
     # ------------------------------------------------------------------
     @_phase

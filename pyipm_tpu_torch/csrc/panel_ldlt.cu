@@ -3,8 +3,12 @@
 // Replaces the Pallas TPU kernel _panel_kernel (pyipm_tpu/ops/pallas_ldlt.py:
 // 198-227) reached through panel_ldlt (:230), which the blocked large-K
 // factorization (pyipm_tpu/ops/linalg.py:ldlt_factor) calls once per
-// 128-wide diagonal panel.  Input: one row-major symmetric n x n matrix
-// (n <= 128); output: unit-lower L (zeros above the diagonal) and pivots d.
+// 128-wide diagonal panel, and which the Schur solver's batched blocked
+// factorization calls on the diagonal panels of all its blocks at once (the
+// JAX package batches the Pallas kernel under vmap, linalg.py:1266).
+// Input: a batch of row-major symmetric n x n matrices (n <= 128), one CTA
+// per matrix (blockIdx.x); output: unit-lower L (zeros above the diagonal)
+// and pivots d, per matrix.
 //
 // Numerics follow the Pallas panel kernel, not the lane kernel of
 // small_ldlt.cu: at step j the column is l_i = a_ij / safe (safe = d_j, or 1
@@ -169,6 +173,10 @@ template <typename T>
 __global__ void __launch_bounds__(kPanelThreads, 1)
 panel_ldlt_kernel(const T* __restrict__ A, T* __restrict__ L,
                   T* __restrict__ d, int n) {
+  // this CTA's panel of the batch
+  A += (size_t)blockIdx.x * n * n;
+  L += (size_t)blockIdx.x * n * n;
+  d += (size_t)blockIdx.x * n;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto* bars = reinterpret_cast<unsigned long long*>(smem_raw);  // (32,)
   T* vec = reinterpret_cast<T*>(smem_raw + kBufs * sizeof(*bars));
@@ -271,11 +279,13 @@ cudaError_t opt_in_smem() {
 }
 
 template <typename T>
-int launch_panel(const void* A, void* L, void* d, int n, void* stream) {
-  if (n <= 0 || n > kMaxPanel) return (int)cudaErrorInvalidValue;
+int launch_panel(const void* A, void* L, void* d, int n, int batch,
+                 void* stream) {
+  if (n <= 0 || n > kMaxPanel || batch <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = opt_in_smem<T>();
   if (err != cudaSuccess) return (int)err;
-  panel_ldlt_kernel<T><<<1, kPanelThreads, panel_smem<T>(n),
+  panel_ldlt_kernel<T><<<batch, kPanelThreads, panel_smem<T>(n),
                          (cudaStream_t)stream>>>(
       static_cast<const T*>(A), static_cast<T*>(L), static_cast<T*>(d), n);
   return (int)cudaGetLastError();
@@ -285,14 +295,14 @@ int launch_panel(const void* A, void* L, void* d, int n, void* stream) {
 
 extern "C" {
 
-int pyipm_panel_ldlt_f32(const void* A, void* L, void* d, int n,
+int pyipm_panel_ldlt_f32(const void* A, void* L, void* d, int n, int batch,
                          void* stream) {
-  return launch_panel<float>(A, L, d, n, stream);
+  return launch_panel<float>(A, L, d, n, batch, stream);
 }
 
-int pyipm_panel_ldlt_f64(const void* A, void* L, void* d, int n,
+int pyipm_panel_ldlt_f64(const void* A, void* L, void* d, int n, int batch,
                          void* stream) {
-  return launch_panel<double>(A, L, d, n, stream);
+  return launch_panel<double>(A, L, d, n, batch, stream);
 }
 
 }  // extern "C"

@@ -23,6 +23,7 @@ from pyipm_tpu_torch.models.random_nlp import (
 from pyipm_tpu_torch.models.reference_problems import (
     REFERENCE_PROBLEMS, ReferenceProblem,
 )
+from pyipm_tpu_torch.parallel import schur as _schur
 
 
 def _as_arrays(data, fields) -> dict:
@@ -149,3 +150,82 @@ def solver_state_from_numpy(state, device=None, dtype=None) -> SolverState:
         kw["hist"] = MetricsHistory(*(t(getattr(hist, k))
                                       for k in MetricsHistory._fields))
     return SolverState(**kw)
+
+
+# ----------------------------------------------------------------------
+# the block-separable Schur solver's data and state
+def _tree_to(tree, dev, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev, dtype) for k, v in tree.items()}
+    out = torch.tensor(np.asarray(tree), device=dev)
+    return out.to(dtype) if (dtype is not None
+                             and out.is_floating_point()) else out
+
+
+def block_data_from_numpy(theta, ccdata=None, device=None, dtype=None):
+    """A block NLP's theta and ccdata (the JAX package's dicts of arrays,
+    nested or not) as the port's dicts of tensors on ``device`` (the card
+    when None); floating arrays in ``dtype`` (theirs when None).  Returns
+    (theta, ccdata)."""
+    dev = resolve_device(device)
+    return (_tree_to(dict(theta), dev, dtype),
+            _tree_to(dict(ccdata), dev, dtype) if ccdata is not None
+            else None)
+
+
+def separable_data_from_numpy(data, device=None,
+                              dtype=None) -> "_schur.SeparableData":
+    """A JAX ``SeparableData`` (or a dict keyed by field name) as the
+    port's on ``device`` (the card when None)."""
+    if not isinstance(data, dict):
+        data = {k: getattr(data, k) for k in _schur.SeparableData._fields}
+    dev = resolve_device(device)
+    return _schur.SeparableData(**{k: _tree_to(v, dev, dtype)
+                                   for k, v in data.items()})
+
+
+def resource_alloc_from_numpy(data, device=None,
+                              dtype=None) -> app.ResourceAllocData:
+    """A JAX ``ResourceAllocData`` (theta, ccdata) as the port's on
+    ``device`` (the card when None)."""
+    return app.resource_alloc_data(dict(data[0]), dict(data[1]),
+                                   device=device, dtype=dtype)
+
+
+def block_state_from_numpy(state, device=None, dtype=None) -> SolverState:
+    """A JAX block solver's ``SolverState`` (``fn.init_state`` or
+    ``fn.run_budget`` of ``make_block_solver``, every block) as the
+    port's block state on ``device`` (the card when None) for a solve in
+    ONE process: x, delta and the block multipliers are (K, ...) slabs,
+    the loop fields a batch of one, ``s`` the (s, sc) pair and ``lda``
+    (le, li, lc, lci); the centrality lanes ``g`` and the history map
+    across where the JAX state holds them (None otherwise)."""
+    dev = resolve_device(device)
+
+    def t(v, dt=None):
+        out = torch.tensor(np.asarray(v), device=dev)
+        if dt is None and out.is_floating_point():
+            dt = dtype
+        return out if dt is None else out.to(dt)
+
+    def one(v, dt=None):
+        return t(v, dt).reshape(1)
+
+    ints = dict.fromkeys(("signal", "iter_count", "outer", "inner",
+                          "reg_retries"), torch.int32)
+    ints.update(inner_done=torch.bool, in_inner=torch.bool)
+    kw = {k: one(getattr(state, k), ints.get(k))
+          for k in ("mu", "nu", "signal", "iter_count", "outer", "inner",
+                    "inner_done", "in_inner", "f_past", "alpha",
+                    "reg_retries")}
+    g = np.asarray(state.g)
+    hist = state.hist
+    return SolverState(
+        x=t(state.x), s=tuple(t(v) for v in state.s),
+        lda=tuple(t(v) for v in state.lda), delta=t(state.delta),
+        kkt=t(state.kkt)[None], g=t(g)[None] if g.size else None,
+        hist=(MetricsHistory(*(t(getattr(hist, k))[None]
+                               for k in MetricsHistory._fields))
+              if np.shape(hist.mu)[-1] > 0 else None),
+        **kw)
+

@@ -20,8 +20,10 @@ Families:
     input sequence; the rollout is a loop over the horizon inside the
     objective, differentiated by ``torch.func``.
 
-The resource-allocation family of the JAX package is a ``BlockNLP`` of
-the distributed Schur solver and waits for it (ROADMAP Queue 1 item 13).
+  - **Resource allocation**: K agents with local costs and constraints
+    sharing resource budgets, one ``BlockNLP`` of the block-separable
+    Schur solver (``parallel/schur.py``); its sampler draws from a
+    ``torch.Generator`` as the Schur samplers do.
 """
 
 from __future__ import annotations
@@ -262,3 +264,73 @@ def make_mpc_batch_solver(config: IPMConfig, horizon: int,
 def mpc_x0(batch: int, horizon: int, nu: int = 2, dtype=np.float32,
            device=None):
     return _full(batch, horizon * nu, 0.0, dtype, device)
+
+
+# ----------------------------------------------------------------------
+# Multi-agent resource allocation, a BlockNLP of the Schur solver:
+#     min   sum_k 0.5 x_k' Q_k x_k + c_k' x_k
+#     s.t.  Ce_k x_k = e_k,  x_k >= 0,  sum_k R_k x_k = budget  (or <=)
+class ResourceAllocData(NamedTuple):
+    theta: dict              # per-agent {Q, c, Ce, e, R, lb} (K, ...)
+    ccdata: dict             # {"budget": (nres,)}
+
+
+def resource_alloc_data(theta: dict, ccdata: dict, device=None,
+                        dtype=None) -> ResourceAllocData:
+    """Numpy arrays (or tensors) as a ResourceAllocData on ``device`` (the
+    card when None), floating arrays in ``dtype`` (theirs when None)."""
+    dev = resolve_device(device)
+
+    def t(v):
+        out = torch.tensor(np.asarray(v), device=dev)
+        return out.to(dtype) if dtype is not None else out
+
+    return ResourceAllocData({k: t(v) for k, v in theta.items()},
+                             {k: t(v) for k, v in ccdata.items()})
+
+
+def sample_resource_alloc(gen: torch.Generator, nagents: int, nvar: int,
+                          nres: int = 4, neq: int = 1, dtype=torch.float32,
+                          device=None) -> ResourceAllocData:
+    """A random feasible instance (the JAX package's distributions,
+    applications.py:283): consumption R_k >= 0, the budget from a strictly
+    positive feasible allocation."""
+    dev = resolve_device(device)
+    K, d = nagents, nvar
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+
+    G = randn(K, d, d) / float(np.sqrt(d))
+    Q = G @ G.transpose(1, 2) + torch.eye(d, dtype=dtype, device=dev)
+    c = randn(K, d)
+    Ce = randn(K, neq, d) / float(np.sqrt(d))
+    R = torch.abs(randn(K, nres, d)) / (K * d)
+    xfeas = torch.abs(randn(K, d)) + 0.5
+    theta = {"Q": Q, "c": c, "Ce": Ce,
+             "e": torch.einsum("kmd,kd->km", Ce, xfeas), "R": R,
+             "lb": torch.zeros((K, d), dtype=dtype, device=dev)}
+    return ResourceAllocData(
+        theta, {"budget": torch.einsum("krd,kd->r", R, xfeas)})
+
+
+def make_resource_alloc_spec(nvar: int, nres: int = 4, neq: int = 1,
+                             cap: str = "eq"):
+    """The BlockNLP of :func:`sample_resource_alloc` instances (solve with
+    ``parallel.schur.make_block_solver``): ``cap='eq'`` makes the pool
+    binding (sum_k R_k x_k = budget), ``cap='ineq'`` a cap (<= budget)
+    through the coupling-inequality class."""
+    from pyipm_tpu_torch.parallel.schur import BlockNLP
+
+    kw = dict(
+        f_blk=lambda xk, th: 0.5 * xk @ (th["Q"] @ xk) + th["c"] @ xk,
+        d=nvar,
+        ce_blk=lambda xk, th: th["Ce"] @ xk - th["e"], me=neq,
+        ci_blk=lambda xk, th: xk - th["lb"], ni=nvar, ci_identity=True,
+        g_blk=lambda xk, th: th["R"] @ xk, p=nres)
+    if cap == "eq":
+        return BlockNLP(cc=lambda u, ccd: u - ccd["budget"], mc=nres, **kw)
+    if cap == "ineq":
+        return BlockNLP(cci=lambda u, ccd: ccd["budget"] - u, mci=nres,
+                        **kw)
+    raise ValueError(f"cap must be 'eq' or 'ineq', got {cap!r}")

@@ -102,7 +102,7 @@ def load() -> ctypes.CDLL:
     signatures = {
         "pyipm_ldlt_factor": [P, P, P, I, I, P],
         "pyipm_ldlt_solve": [P, P, P, P, P, I, I, P],
-        "pyipm_panel_ldlt": [P, P, P, I, P],
+        "pyipm_panel_ldlt": [P, P, P, I, I, P],
         "pyipm_bwd_sweep_blocks": [P, P, P, P, P, P, I, I, P],
         "pyipm_bwd_sweep_panels": [P, P, P, P, P, I, P],
     }

@@ -2,9 +2,10 @@
 ``csrc/panel_ldlt.cu``, ``csrc/bwd_sweep_panels.cu`` and
 ``csrc/bwd_sweep_blocks.cu`` and their plain PyTorch versions.
 
-  - :func:`panel_ldlt` — LDL^T of one n x n diagonal panel (n <= 128),
-    counterpart of the Pallas ``_panel_kernel`` / ``panel_ldlt``
-    (pyipm_tpu/ops/pallas_ldlt.py:198-245);
+  - :func:`panel_ldlt` — LDL^T of one n x n diagonal panel (n <= 128), or
+    of a batch of them in one launch, counterpart of the Pallas
+    ``_panel_kernel`` / ``panel_ldlt`` (pyipm_tpu/ops/pallas_ldlt.py:198-245;
+    the JAX package batches it under ``vmap``);
   - :func:`bwd_sweep_panels` / :func:`bwd_sweep_blocks` — the backward
     substitution L^T x = z from the padded factor and the inverses of its
     128-wide panels or of its superblocks, counterparts of the Pallas
@@ -13,7 +14,9 @@
 
 The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
-counts kernel launches per wrapper; nothing else adds to it.  Each sweep is
+counts kernel launches per wrapper, and ``LAUNCHES_BY_B`` the panel
+kernel's launches by (kernel, number of panels); nothing else adds to
+them.  Each sweep is
 one kernel launch whose CTAs chain the block steps by flags or counters in
 device memory (``csrc/bwd_sweep_panels.cu``, ``csrc/bwd_sweep_blocks.cu``).
 Both cut their work into 128 x 128 tiles, so on the card a block width that
@@ -22,6 +25,8 @@ is no multiple of 128 raises.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from pyipm_tpu_torch.ops import _build
@@ -29,6 +34,7 @@ from pyipm_tpu_torch.ops import _build
 MAX_PANEL = 128
 SWEEP_MAX_W = 4096
 LAUNCHES = {"panel_ldlt": 0, "bwd_sweep_panels": 0, "bwd_sweep_blocks": 0}
+LAUNCHES_BY_B = collections.Counter()
 
 
 # ----------------------------------------------------------------------
@@ -37,7 +43,10 @@ def panel_ldlt_ref(A):
     """Unpivoted right-looking LDL^T of one (n, n) panel -> (L unit lower,
     d), in the Pallas panel kernel's arithmetic: l = a_j / safe, trailing
     update a -= (l * safe) l^T, a zero pivot divides (and multiplies) by 1
-    (pallas_ldlt.py:205-221)."""
+    (pallas_ldlt.py:205-221).  A batch (B, n, n) is mapped panel by panel
+    (``torch.vmap`` of the single form)."""
+    if A.dim() == 3:
+        return torch.vmap(panel_ldlt_ref)(A)
     n = A.shape[0]
     W = A.clone()
     L = torch.zeros_like(A)
@@ -69,23 +78,28 @@ def bwd_sweep_ref(Lp, z, inv):
 
 # ----------------------------------------------------------------------
 def panel_ldlt(A):
-    """(n, n) -> (L, d), n <= 128.  CUDA: the hand-written kernel; CPU:
-    plain."""
-    if A.dim() != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"A must be (n, n), got {tuple(A.shape)}")
-    n = A.shape[0]
+    """(n, n) -> (L, d), or a batch (B, n, n) -> (L (B, n, n), d (B, n)) in
+    one launch, n <= 128.  CUDA: the hand-written kernel; CPU: plain."""
+    if A.dim() not in (2, 3) or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"A must be (n, n) or (B, n, n), got "
+                         f"{tuple(A.shape)}")
+    n = A.shape[-1]
+    B = A.shape[0] if A.dim() == 3 else 1
     if not 0 < n <= MAX_PANEL:
         raise ValueError(f"panel size {n} not in 1..{MAX_PANEL}")
-    _build.check_operand("A", A, (n, n), A.dtype, A.device)
+    _build.check_operand("A", A, A.shape, A.dtype, A.device)
     if A.device.type == "cpu":
         return panel_ldlt_ref(A)
     if A.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {A.device}")
     L = torch.empty_like(A)
-    d = A.new_empty((n,))
+    d = A.new_empty(A.shape[:-1])
+    if B == 0:
+        return L, d
     _build.launch("pyipm_panel_ldlt", "panel_ldlt", A.dtype, A.device,
-                  A.data_ptr(), L.data_ptr(), d.data_ptr(), n)
+                  A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B)
     LAUNCHES["panel_ldlt"] += 1
+    LAUNCHES_BY_B["panel_ldlt", B] += 1
     return L, d
 
 

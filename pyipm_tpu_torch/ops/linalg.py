@@ -718,6 +718,266 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
     return dz, delta_new, retries, apply_factors, applied
 
 
+# ----------------------------------------------------------------------
+# batches of mid-size and large blocks (the Schur solver's per-block
+# systems, JAX linalg.py:276-393 and :1183-1367)
+def ldlt_factor_unrolled(A, panel: int = 16, want_panel_inv: bool = False):
+    """Batched LDL^T of (B, n, n) over ``panel``-wide panels: each panel
+    factored by ``panel`` masked elementwise column steps on (B, p, p), its
+    sub-panel rows by one product with the panel's inverse, the trailing
+    matrix by one batched product (JAX linalg.py:276-346).  Returns (L, d)
+    and, with ``want_panel_inv``, the panel inverses (B, nb, p, p) for
+    :func:`ldlt_solve_unrolled_blocks`.  Plain PyTorch: the JAX package
+    computes it outside any kernel too."""
+    Bb, n, _ = A.shape
+
+    def factor_panel(Ap):
+        p = Ap.shape[-1]
+        rows = torch.arange(p, device=Ap.device)
+        zero = Ap.new_zeros(())
+        cols, ds = [], []
+        for j in range(p):
+            dj = Ap[:, j, j]
+            col = Ap[:, :, j] / _safe(dj)[:, None]
+            col = torch.where(rows[None, :] > j, col, zero)
+            cols.append(col + (rows == j)[None, :].to(Ap.dtype))
+            ds.append(dj)
+            Ap = Ap - col[:, :, None] * col[:, None, :] * dj[:, None, None]
+        return torch.stack(cols, dim=-1), torch.stack(ds, dim=-1)
+
+    if n <= panel:
+        L, dv = factor_panel(A)
+        if want_panel_inv:
+            return L, dv, unit_lower_inverse(L)[:, None]
+        return L, dv
+    nb = -(-n // panel)
+    npad = nb * panel
+    At = _pad_identity(A, npad)
+    L = A.new_zeros((Bb, npad, npad))
+    d = A.new_zeros((Bb, npad))
+    invs = A.new_empty((Bb, nb, panel, panel))
+    for k in range(nb):
+        j0, j1 = k * panel, (k + 1) * panel
+        L11, dk = factor_panel(At[:, :panel, :panel])
+        L11inv = unit_lower_inverse(L11)
+        Y = At[:, panel:, :panel] @ L11inv.transpose(-1, -2)  # = L21 d
+        L21 = Y / _safe(dk)[:, None, :]
+        At = At[:, panel:, panel:] - L21 @ Y.transpose(-1, -2)
+        L[:, j0:j1, j0:j1] = L11
+        L[:, j1:, j0:j1] = L21
+        d[:, j0:j1] = dk
+        invs[:, k] = L11inv
+    if want_panel_inv:
+        return L[:, :n, :n], d[:, :n], invs
+    return L[:, :n, :n], d[:, :n]
+
+
+def ldlt_solve_unrolled_blocks(L, d, invb, Bc, panel: int):
+    """(L diag(d) L^T) X = Bc for (B, n, n), (B, n), the panel inverses
+    (B, nb, p, p) of :func:`ldlt_factor_unrolled` and a multi-rhs Bc
+    (B, n, r): block forward substitution, the diagonal scale, block
+    backward substitution, one batched product per panel step (JAX
+    linalg.py:347-393)."""
+    Bb, n, r = Bc.shape
+    nb = invb.shape[1]
+    npad = nb * panel
+    if npad != n:
+        L = _pad_identity(L, npad)
+        d = torch.cat([d, d.new_ones((Bb, npad - n))], dim=1)
+        Bc = torch.cat([Bc, Bc.new_zeros((Bb, npad - n, r))], dim=1)
+    y = Bc.new_empty((Bb, npad, r))
+    for k in range(nb):
+        j0, j1 = k * panel, (k + 1) * panel
+        bk = Bc[:, j0:j1]
+        if k:
+            bk = bk - L[:, j0:j1, :j0] @ y[:, :j0]
+        y[:, j0:j1] = invb[:, k] @ bk
+    z = y / _safe(d)[..., None]
+    x = Bc.new_empty((Bb, npad, r))
+    for k in reversed(range(nb)):
+        j0, j1 = k * panel, (k + 1) * panel
+        zk = z[:, j0:j1]
+        if k < nb - 1:
+            zk = zk - L[:, j1:, j0:j1].transpose(1, 2) @ x[:, j1:]
+        x[:, j0:j1] = invb[:, k].transpose(1, 2) @ zk
+    return x[:, :n]
+
+
+def _pad_identity(A, npad: int):
+    """(B, n, n) padded to (B, npad, npad) with an identity tail."""
+    Bb, n, _ = A.shape
+    if npad == n:
+        return A
+    W = A.new_zeros((Bb, npad, npad))
+    W[:, :n, :n] = A
+    tail = torch.arange(n, npad, device=A.device)
+    W[:, tail, tail] = 1
+    return W
+
+
+def ldlt_factor_batched(A, block: int = 128):
+    """Blocked right-looking LDL^T of B blocks (B, n, n), n > ``block``, in
+    one pass over the ``block``-wide panels (the JAX package's
+    ``vmap(ldlt_factor)``, linalg.py:1266): per panel step one launch of
+    the panel kernel on the (B, block, block) diagonal panels, one batched
+    triangular solve for the sub-panel rows, one batched trailing product.
+    Pads to a multiple of ``block`` with an identity tail, as
+    :func:`ldlt_factor`.  Returns (L, d), (B, n, n) and (B, n)."""
+    Bb, n, _ = A.shape
+    if not 0 < block <= MAX_PANEL:
+        raise ValueError(f"block = {block} not in 1..{MAX_PANEL} (the panel "
+                         "kernel's limit)")
+    nb = -(-n // block)
+    npad = nb * block
+    W = _pad_identity(A, npad).clone()
+    L = A.new_zeros((Bb, npad, npad))
+    d = A.new_zeros((Bb, npad))
+    for k in range(nb):
+        j0, j1 = k * block, (k + 1) * block
+        Lkk, dk = panel_ldlt(W[:, j0:j1, j0:j1].contiguous())
+        L[:, j0:j1, j0:j1] = Lkk
+        d[:, j0:j1] = dk
+        if j1 == npad:
+            break
+        # sub-panel rows: Y = A21 Lkk^-T = L21 diag(dk)
+        Y = torch.linalg.solve_triangular(
+            Lkk, W[:, j1:, j0:j1].transpose(1, 2), upper=False,
+            unitriangular=True).transpose(1, 2)
+        L21 = Y / _safe(dk)[:, None, :]
+        L[:, j1:, j0:j1] = L21
+        W[:, j1:, j1:].baddbmm_(L21, Y.transpose(1, 2), alpha=-1)
+    return L[:, :n, :n], d[:, :n]
+
+
+def batched_reg_factor(H, delta, mu, *, neq: int, eps: float,
+                       reg_coef: float, eta: float, beta: float,
+                       delta0: float, max_retries: int = 40,
+                       block: int = 128):
+    """Batched inertia-corrected LDL^T of the (B, n, n) per-block condensed
+    systems of the Schur solver, layout [x block (n - neq); eq block (neq)],
+    target inertia ``neq`` negative pivots (JAX linalg.py:1183-1367),
+    decision for decision: Ruiz scaling per block, pivot-sign inertia with
+    the rcond test, the eq-block regularization on ill-conditioned blocks,
+    the warm-started per-block delta (B,), the x10 escalation over the bad
+    blocks only (good blocks keep their first factors), the whole retry
+    phase skipped when every block is good.
+
+    Three branches by n: n <= 128 the batched small factor (kernel 1) and
+    one ``unit_lower_inverse`` reused by every solve; n <= 512
+    :func:`ldlt_factor_unrolled` with panel 32; above,
+    :func:`ldlt_factor_batched` (kernel 3 on the batch of panels) and two
+    batched triangular solves.
+
+    Host syncs (``_sync``): one for the skip test, one per escalation
+    test.  Returns ``(solve_fn, delta_new, retries, (delta_applied,
+    eq_shift))``: ``solve_fn(Bc (B, n, r))`` solves against the final
+    factors in the original (unscaled) coordinates; ``retries`` an int."""
+    Bn, n, _ = H.shape
+    dtype, dev = H.dtype, H.device
+    d_x = n - neq
+    idx = torch.arange(n, device=dev)
+    ex = (idx < d_x).to(dtype)
+    eeq = (idx >= d_x).to(dtype)
+    eps_t = _scalar(eps, H)
+    delta0_t = _scalar(delta0, H)
+    tiny = _tiny(dtype)
+
+    Hs, dsc = ruiz_scale(H)
+    shift_diag = (dsc * dsc) * ex
+    eq_diag = (dsc * dsc) * eeq
+
+    if n <= SMALL_K:
+        def factor(Hm):
+            with annotate("ipm-kkt-factor", dev):
+                L, dv = ldlt_factor_small(Hm.contiguous())
+                return L, dv, unit_lower_inverse(L)
+
+        def fsolve(facs, Bc):
+            _, dv, Linv = facs
+            z = (Linv @ Bc) / _safe(dv)[..., None]
+            return Linv.transpose(1, 2) @ z
+    elif n <= 512:
+        def factor(Hm):
+            with annotate("ipm-kkt-factor", dev):
+                return ldlt_factor_unrolled(Hm, panel=32,
+                                            want_panel_inv=True)
+
+        def fsolve(facs, Bc):
+            return ldlt_solve_unrolled_blocks(*facs, Bc, panel=32)
+    else:
+        def factor(Hm):
+            with annotate("ipm-kkt-factor", dev):
+                return ldlt_factor_batched(Hm, block=block)
+
+        def fsolve(facs, Bc):
+            L, dv = facs
+            y = torch.linalg.solve_triangular(L, Bc, upper=False,
+                                              unitriangular=True)
+            z = y / _safe(dv)[..., None]
+            return torch.linalg.solve_triangular(
+                L.transpose(1, 2), z, upper=True, unitriangular=True)
+
+    def shift_ok(dv):
+        return (torch.all(torch.isfinite(dv), dim=-1)
+                & (torch.sum(dv < 0, dim=-1) == neq))
+
+    def shifted(Hb, dlt, sd):
+        Hm = Hb.clone()
+        dg = Hm.diagonal(dim1=-2, dim2=-1)
+        dg.copy_(dg + dlt[:, None] * sd)
+        return Hm
+
+    def put(facs, ids, sub):
+        for f, g in zip(facs, sub):
+            f[ids] = g
+
+    facs = factor(Hs)
+    dv0 = facs[1]
+    ok0 = ldlt_inertia_ok(dv0, neq, eps_t)
+    zero_b = H.new_zeros((Bn,))
+    delta_new, delta_applied, eq_shift = delta, zero_b, zero_b
+    retries = 0
+    fix = _sync.indices(~ok0)                     # the skip of the retries
+    if fix.numel():
+        if neq:
+            ad0 = torch.abs(dv0)
+            rcond0 = (torch.amin(ad0, dim=-1)
+                      / torch.clamp(torch.amax(ad0, dim=-1), min=tiny))
+            illcond = ((~torch.all(torch.isfinite(dv0), dim=-1))
+                       | (rcond0 <= eps_t))
+            reg = _eq_reg_term(mu, reg_coef, eta, beta)
+            eq_shift = torch.where((~ok0) & illcond, reg, zero_b)
+        # the bad blocks only, with their warm-started entry shift
+        Hb = Hs[fix]
+        Hb.diagonal(dim1=-2, dim2=-1).sub_(eq_shift[fix, None]
+                                           * eq_diag[fix])
+        sd = shift_diag[fix]
+        df = delta[fix]
+        dlt = torch.where(df == 0, delta0_t, torch.clamp(df / 2, min=delta0))
+        sub = factor(shifted(Hb, dlt, sd))
+        put(facs, fix, sub)
+        bad = ~shift_ok(sub[1])
+        while retries < max_retries:
+            loop = _sync.indices(bad)
+            if loop.numel() == 0:
+                break
+            dlt[loop] = dlt[loop] * 10.0
+            sub = factor(shifted(Hb[loop], dlt[loop], sd[loop]))
+            put(facs, fix[loop], sub)
+            bad[loop] = ~shift_ok(sub[1])
+            retries += 1
+        delta_new = delta.clone()
+        delta_new[fix] = dlt
+        delta_applied = zero_b.clone()
+        delta_applied[fix] = dlt
+
+    def solve_fn(Bc):
+        with annotate("ipm-kkt-solve", dev):
+            return dsc[..., None] * fsolve(facs, dsc[..., None] * Bc)
+
+    return solve_fn, delta_new, retries, (delta_applied, eq_shift)
+
+
 def lstsq_minnorm(A, b):
     """Minimum-norm least squares for (B, m, n), (B, m) -> (B, n), through
     lightly regularized normal equations with guarded refinement

@@ -13,9 +13,10 @@ here is exactly the active set.  :func:`rescue_failures` re-solves the
 instances a run did not converge under a stronger configuration and
 merges the successes back.
 
-Sharding a fleet over several cards (``make_batch_solver(mesh=...)`` in
-the JAX package) waits for the port's process groups (ROADMAP Queue 1
-item 13).
+With a mesh (``parallel/mesh.py``), :func:`make_batch_solver` splits a
+fleet over the ranks of the mesh's ``batch`` dimension: each rank solves
+its ``host_local_slice`` with no collective, and the result is gathered
+onto every rank at the end.
 """
 
 from __future__ import annotations
@@ -33,12 +34,56 @@ from pyipm_tpu_torch.core.solver import (
 )
 
 
-def make_batch_solver(problem: Problem,
-                      config: Optional[IPMConfig] = None) -> BatchSolver:
-    """``fn(x0_batch, params=(), s0=None, lda0=None) -> SolverResult`` with
-    a leading batch axis on every input and output; runs on the device of
-    ``x0_batch``."""
-    return BatchSolver(problem, config)
+class ShardedBatchSolver(BatchSolver):
+    """A :class:`BatchSolver` whose call solves this rank's slice of the
+    global batch and gathers every rank's result (the JAX package's
+    ``make_batch_solver(mesh=...)``, batch.py:42-75)."""
+
+    def __init__(self, problem: Problem, config: Optional[IPMConfig],
+                 mesh, batch_axis: str = "batch"):
+        super().__init__(problem, config)
+        self.mesh, self.batch_axis = mesh, batch_axis
+
+    def __call__(self, x0, params=(), s0=None, lda0=None, mu0=None,
+                 nu0=None) -> SolverResult:
+        from pyipm_tpu_torch.parallel.distributed import host_local_slice
+        import torch.distributed as dist
+
+        sl = host_local_slice(x0.shape[0], self.mesh, self.batch_axis)
+        ids = torch.arange(sl.start, sl.stop, device=x0.device)
+
+        def part(v):
+            return None if v is None else v[sl]
+
+        def part_warm(v):                  # a number, or (B,) per instance
+            return v[sl] if torch.is_tensor(v) and v.ndim else v
+
+        res = super().__call__(x0[sl], take(params, ids), part(s0),
+                               part(lda0), part_warm(mu0), part_warm(nu0))
+        group = self.mesh.get_group(self.batch_axis)
+        n = dist.get_world_size(group)
+
+        def gather(t):
+            if t.numel() == 0:             # (B, 0) histories: no exchange
+                return t.new_empty((t.shape[0] * n,) + t.shape[1:])
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return torch.cat(parts, dim=0)
+
+        return _tree(gather, res)
+
+
+def make_batch_solver(problem: Problem, config: Optional[IPMConfig] = None,
+                      mesh=None, batch_axis: str = "batch") -> BatchSolver:
+    """``fn(x0_batch, params=(), s0=None, lda0=None, mu0=None, nu0=None)
+    -> SolverResult`` with a leading batch axis on every input and output
+    (``mu0``/``nu0`` a number or a (B,) tensor); runs on the device of
+    ``x0_batch``.  With ``mesh`` each rank of its ``batch_axis`` solves
+    its slice of the (global, every rank's) batch, and the result comes
+    back whole on every rank."""
+    if mesh is None:
+        return BatchSolver(problem, config)
+    return ShardedBatchSolver(problem, config, mesh, batch_axis)
 
 
 def solve_batch(problem: Problem, x0_batch,

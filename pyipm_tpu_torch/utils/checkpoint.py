@@ -2,7 +2,10 @@
 ``pyipm_tpu/utils/checkpoint.py``).
 
 A :class:`~pyipm_tpu_torch.core.solver.SolverState` (or a
-``SolverResult``), batched, is the checkpoint unit: save it after
+``SolverResult``), batched, is the checkpoint unit, and so is the block
+solver's state (``parallel/schur.py``: the same SolverState with the
+(s, sc) pair in ``s`` and the (le, li, lc, lci) multipliers in ``lda``,
+each rank's blocks in its own file): save it after
 ``run_budget`` pauses a solve, restore it on the card (or anywhere), and
 finish it with ``run``.  The format is one ``.npz``: the tensors in field
 order, nested NamedTuples flattened in place, each stored under its dotted
@@ -29,11 +32,19 @@ class CheckpointError(RuntimeError):
     """A checkpoint file does not match the expected state structure."""
 
 
+def _items(tree):
+    """(name, value) of a NamedTuple's fields, or of a plain tuple's
+    entries by position (the block solver's ``s`` and ``lda``)."""
+    if hasattr(tree, "_asdict"):
+        return tree._asdict().items()
+    return ((str(i), v) for i, v in enumerate(tree))
+
+
 def _leaves(tree, prefix=""):
-    """(dotted path, tensor) of every tensor of a nested NamedTuple, in
+    """(dotted path, tensor) of every tensor of a nested (Named)tuple, in
     field order; None fields are skipped."""
     out = []
-    for k, v in tree._asdict().items():
+    for k, v in _items(tree):
         if v is None:
             continue
         if isinstance(v, tuple):
@@ -45,11 +56,11 @@ def _leaves(tree, prefix=""):
 
 def _rebuild(like, it):
     """``like`` with each tensor replaced, in field order, from ``it``."""
-    return type(like)(*(
-        None if v is None
-        else _rebuild(v, it) if isinstance(v, tuple)
-        else next(it)
-        for v in like))
+    vals = [None if v is None
+            else _rebuild(v, it) if isinstance(v, tuple)
+            else next(it)
+            for v in like]
+    return type(like)(*vals) if hasattr(like, "_fields") else tuple(vals)
 
 
 def _npz_path(path: str) -> str:
