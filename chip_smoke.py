@@ -83,10 +83,16 @@ Phases, each raising on failure:
  24. two ranks on the card through ``launch --spawn 2`` on gloo (NCCL
      refuses two ranks on one card): phase 21's instance at K = 8,192
      against one process, and examples/distributed_fleet.py at 2 ranks
-     against 1.
-Phases 21-23 each print the wall, iterations, flat steps, host syncs,
-all-reduces, kernel launches by shape and the device's busy share over
-the first 3 inner iterations of a second, profiled solve.
+     against 1;
+ 25. the per-block L-BFGS mode at 524,288 variables, K = 8 blocks of d =
+     65,536 (diagonal quadratics, bounds, linear coupling over mc = 4),
+     L-BFGS(8), float32: signal 1 or 2, no kernel launched (none lies on
+     this path), the peak allocation under 2 GiB; the same family at d =
+     4,096 in float64 on the card and on the CPU (signal and iterations
+     equal, x within 1e-8); examples/block_lbfgs_and_ragged.py.
+Phases 21-23 and 25 each print the wall, iterations, flat steps, host
+syncs, all-reduces, kernel launches by shape and the device's busy share
+over the first 3 inner iterations of a second, profiled solve.
 Each kernel is timed twice: ``ms``, CUDA events around one wrapper call
 (what the path sees, host enqueue included), and ``device_ms``, the
 kernel's own device time per launch from ``torch.profiler``, with the
@@ -650,8 +656,7 @@ def check_large_kernels(ll, lin, device):
             Hs, dsc = lin.ruiz_scale(H[None])
             Hs = Hs[0]
             Lp, dp, invp = lin.ldlt_factor_panels(Hs)
-            Lb, db, invb = lin.ldlt_factor_blocks(Hs, group=8,
-                                                  pad_to_grid=True)
+            Lb, db, invb = lin.ldlt_factor_blocks(Hs, group=8)
             npad = Lp.shape[0]
             z = torch.randn(npad, generator=gen,
                             dtype=torch.float64).to(dtype).to(device)
@@ -687,7 +692,7 @@ def check_large_kernels(ll, lin, device):
     H, g = kkt_matrix_bench(4096, 256, torch.float32, device)
     Hs = lin.ruiz_scale(H[None])[0][0]
     Lp, dp, invp = lin.ldlt_factor_panels(Hs)
-    Lb, db, invb = lin.ldlt_factor_blocks(Hs, group=8, pad_to_grid=True)
+    Lb, db, invb = lin.ldlt_factor_blocks(Hs, group=8)
     npad = Lp.shape[0]
     z = torch.randn(npad, generator=gen).to(device)
     panel = Hs[:128, :128].contiguous()
@@ -1331,6 +1336,10 @@ WEAK = dict(K=65_536, d=16, mc=4)            # schur_weak_scaling.json
 LARGE = dict(K=256, d=1024, mc=8)            # schur_largeblock_262k.json
 GENERAL_K, RESOURCE_K, RESOURCE_D = 16_384, 16_384, 16
 RANKS_K, RANKS_TIMEOUT_S = 8192, 400         # phase 24: 4,096 a rank
+# phase 25: benchmarks/bench_lbfgs_block.py:48-70 (schur_lbfgs_largeblock)
+LBFGS_BLOCK = dict(K=8, d=65_536, p=4, mem=8, seed=5)
+LBFGS_CROSS_D = 4096                           # card against CPU, float64
+LBFGS_PEAK_LIMIT = 2 << 30                     # bytes
 
 
 @contextlib.contextmanager
@@ -1781,6 +1790,90 @@ def ranks_phase(S, cfg, device):
     return out
 
 
+def lbfgs_block_phase(S, counters, sl, ll, _sync, device):
+    """Phase 25: the per-block L-BFGS mode at the JAX package's
+    large-block width (K = 8 blocks of d = 65,536, p = mc = 4, L-BFGS(8),
+    float32): signal 1 or 2, no kernel launched, the peak allocation
+    under LBFGS_PEAK_LIMIT; the same family at d = LBFGS_CROSS_D in
+    float64 on the card and on the CPU (signal and iterations equal, x
+    within 1e-8); and examples/block_lbfgs_and_ragged.py on the card."""
+    from pyipm_tpu_torch import IPMConfig
+    from pyipm_tpu_torch.examples import block_lbfgs_and_ragged
+    K, d, p = LBFGS_BLOCK["K"], LBFGS_BLOCK["d"], LBFGS_BLOCK["p"]
+    cfg = IPMConfig(float_dtype="float32", verbosity=0,
+                    lbfgs=LBFGS_BLOCK["mem"], niter=20, miter=60)
+    gen = torch.Generator(device=device).manual_seed(LBFGS_BLOCK["seed"])
+    spec, theta, ccdata, x0 = S.sample_block_box_quadratic(
+        gen, K, d, p, dtype=torch.float32, device=device)
+    fn = S.make_block_solver(spec, None, cfg, device=device)
+    # the first calls of this path's library routines load their modules:
+    # an initial state and 2 iterations first, so the timed solve is warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn.run_budget(fn.init_state(x0, theta, ccdata), theta, ccdata, 2)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _, out = block_solve(fn, x0, theta, ccdata, counters, sl, ll, _sync,
+                         f"L-BFGS({cfg.lbfgs}) K={K} d={d} mc={p} "
+                         f"({K * d} variables, float32)", signals=(1, 2))
+    out["warm_up_s"] = warm_s
+    dense_bytes = K * d * d * 4
+    its = max(out["iters"], 1)
+    print(f"  per inner iteration: flat steps {out['flat_steps'] / its:.2f}"
+          f", host syncs {out['host_syncs'] / its:.2f}, all-reduces "
+          f"{out['all_reduces_per_iter']:.2f}; peak allocation "
+          f"{out['max_memory_bytes']} B (a dense per-block Hessian alone: "
+          f"{dense_bytes} B); kernel launches {out['launches']}; the "
+          f"warm-up (initial state and 2 iterations) {warm_s:.3f} s",
+          flush=True)
+    if any(out["launches"].values()):
+        raise AssertionError(f"the L-BFGS path launched a kernel: "
+                             f"{out['launches']}")
+    if not out["max_memory_bytes"] < LBFGS_PEAK_LIMIT:
+        raise AssertionError(f"peak allocation {out['max_memory_bytes']} B "
+                             f">= {LBFGS_PEAK_LIMIT} B")
+    del theta, ccdata, x0, fn
+
+    # the card against the CPU path on the same data, float64
+    c64 = cfg.replace(float_dtype="float64")
+    gen = torch.Generator(device=device).manual_seed(LBFGS_BLOCK["seed"])
+    spec, theta, ccdata, x0 = S.sample_block_box_quadratic(
+        gen, K, LBFGS_CROSS_D, p, dtype=torch.float64, device=device)
+    walls, res = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        th = {k: v.to(dev) for k, v in theta.items()}
+        cc = {k: v.to(dev) for k, v in ccdata.items()}
+        t0 = time.perf_counter()
+        res[where] = S.make_block_solver(spec, None, c64, device=dev)(
+            x0.to(dev), th, cc)
+        walls[where] = time.perf_counter() - t0
+    xg, xc = res["card"].x.cpu().numpy(), res["cpu"].x.numpy()
+    dx = float(np.max(np.abs(xg - xc) / (1 + np.abs(xc))))
+    cross = {w: dict(signal=int(r.signal), iters=int(r.iter_count),
+                     wall_s=walls[w]) for w, r in res.items()}
+    cross["max_dx"] = dx
+    print(f"  K={K} d={LBFGS_CROSS_D} float64: card signal "
+          f"{cross['card']['signal']} iterations {cross['card']['iters']} "
+          f"wall {walls['card']:.3f} s; CPU signal {cross['cpu']['signal']}"
+          f" iterations {cross['cpu']['iters']} wall {walls['cpu']:.3f} s; "
+          f"max |dx|/(1+|x|) {dx:.3e}", flush=True)
+    if (cross["card"]["signal"], cross["card"]["iters"]) != (
+            cross["cpu"]["signal"], cross["cpu"]["iters"]) or \
+            cross["card"]["signal"] not in (1, 2) or not dx <= 1e-8:
+        raise AssertionError(f"L-BFGS card against CPU: {cross}")
+    out["cross_f64"] = cross
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as ex_out:
+        block_lbfgs_and_ragged.main(device=device.type)
+    out["example_s"] = time.perf_counter() - t0
+    print("  examples/block_lbfgs_and_ragged.py: "
+          + "; ".join(ex_out.getvalue().strip().splitlines())
+          + f" ({out['example_s']:.2f} s)", flush=True)
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2093,6 +2186,10 @@ def main() -> int:
           f"{held_schur} (B = {PATH_B})", flush=True)
     phase("24 two ranks on the card (launch --spawn 2, gloo)")
     schur["ranks"] = ranks_phase(S, cfg, device)
+    phase(f"25 the per-block L-BFGS mode: {LBFGS_BLOCK['K']} blocks of "
+          f"d={LBFGS_BLOCK['d']}, mc={LBFGS_BLOCK['p']}, float32")
+    schur["lbfgs_block"] = lbfgs_block_phase(S, counters, sl, ll, _sync,
+                                             device)
 
     def row(name, replaces, source, launches_, rec_, shape):
         return {"name": name, "route": "cuda", "source": source,
@@ -2147,6 +2244,7 @@ def main() -> int:
     ], "launches_by_path": {"fleet": launches, **path_launches,
                             "mehrotra_fleet": mlaunches,
                             "lbfgs_dense": lbfgs["launches"],
+                            "lbfgs_block": schur["lbfgs_block"]["launches"],
                             "cli": facade["launches"],
                             "wave_fleet": wave["launches"],
                             "budget_resume": budget["launches"],

@@ -198,8 +198,9 @@ def block_state_from_numpy(state, device=None, dtype=None) -> SolverState:
     port's block state on ``device`` (the card when None) for a solve in
     ONE process: x, delta and the block multipliers are (K, ...) slabs,
     the loop fields a batch of one, ``s`` the (s, sc) pair and ``lda``
-    (le, li, lc, lci); the centrality lanes ``g`` and the history map
-    across where the JAX state holds them (None otherwise)."""
+    (le, li, lc, lci); the centrality lanes ``g``, the history and an
+    L-BFGS solve's per-block memory and ``x_old`` map across where the
+    JAX state holds them (None otherwise)."""
     dev = resolve_device(device)
 
     def t(v, dt=None):
@@ -220,10 +221,15 @@ def block_state_from_numpy(state, device=None, dtype=None) -> SolverState:
                     "reg_retries")}
     g = np.asarray(state.g)
     hist = state.hist
+    # exact-Hessian mode holds an empty memory and a (0,) x_old
+    lbfgs = np.asarray(state.x_old).size > 0
     return SolverState(
         x=t(state.x), s=tuple(t(v) for v in state.s),
         lda=tuple(t(v) for v in state.lda), delta=t(state.delta),
         kkt=t(state.kkt)[None], g=t(g)[None] if g.size else None,
+        lbfgs=(lbfgs_state_from_numpy(state.lbfgs, device=dev, dtype=dtype)
+               if lbfgs else None),
+        x_old=t(state.x_old) if lbfgs else None,
         hist=(MetricsHistory(*(t(getattr(hist, k))[None]
                                for k in MetricsHistory._fields))
               if np.shape(hist.mu)[-1] > 0 else None),

@@ -209,35 +209,25 @@ def ldlt_factor_panels(A, block: int = 128, group: int = 8, rhs=None):
     return out[:2] + (invp,) + out[2:-1]
 
 
-def ldlt_factor_blocks(A, block: int = 128, group: int = 4, rhs=None,
-                       pad_to_grid: bool = False):
+def ldlt_factor_blocks(A, block: int = 128, group: int = 4, rhs=None):
     """Like :func:`ldlt_factor`, plus the inverses of the unit-lower
     diagonal SUPERBLOCKS (npad/sb, sb, sb), sb = group*block, assembled
     from the panel inverses by blocked triangular inversion
-    X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj (JAX linalg.py:415-511).
-    Returns (L, d, invb) or, with ``rhs``, (L, d, invb, y); with
-    ``pad_to_grid`` L, d and y come out padded to the superblock grid."""
+    X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj (JAX linalg.py:415-511, with
+    ``pad_to_grid=True``).  Returns (L, d, invb) or, with ``rhs``, (L, d,
+    invb, y), L, d and y padded to the superblock grid."""
     n = A.shape[0]
     if n <= block:
         raise ValueError(f"n = {n} <= block = {block}: not a blocked system")
     _, g, nb2, npad = _grid(n, block, group)
-    P = nb2 * g
-    out = ldlt_factor(A, block=block, rhs=rhs,
-                      pad_to=npad if pad_to_grid else None,
-                      want_panels=pad_to_grid)
+    out = ldlt_factor(A, block=block, rhs=rhs, pad_to=npad, want_panels=True)
     L, d = out[:2]
     tail = out[2:3] if rhs is not None else ()
-    if pad_to_grid:
-        Lp, panels = L, out[-1]
-    else:
-        Lp = _pad_unit(L, npad)
-        panels = Lp.view(P, block, P, block).diagonal(
-            dim1=0, dim2=2).permute(2, 0, 1)
-    invp = unit_lower_inverse(panels)                  # (P, block, block)
+    invp = unit_lower_inverse(out[-1])                 # (P, block, block)
     if g == 1:
         return (L, d, invp) + tail
-    # Lsub[m, i, :, k, :] = the (m*g+i, m*g+k) panel block of Lp
-    Lsub = Lp.view(nb2, g, block, nb2, g, block).diagonal(
+    # Lsub[m, i, :, k, :] = the (m*g+i, m*g+k) panel block of L
+    Lsub = L.view(nb2, g, block, nb2, g, block).diagonal(
         dim1=0, dim2=3).permute(4, 0, 1, 2, 3)
     inv4 = invp.view(nb2, g, block, block)
     X = [[None] * g for _ in range(g)]
@@ -249,21 +239,11 @@ def ldlt_factor_blocks(A, block: int = 128, group: int = 4, rhs=None,
             for k in range(j + 1, i):
                 acc = acc + Lsub[:, i, :, k, :] @ X[k][j]
             X[i][j] = -(inv4[:, i] @ acc)
-    invb = Lp.new_zeros((nb2, g, block, g, block))
+    invb = L.new_zeros((nb2, g, block, g, block))
     for i in range(g):
         for j in range(i + 1):
             invb[:, i, :, j, :] = X[i][j]
     return (L, d, invb.view(nb2, g * block, g * block)) + tail
-
-
-def _pad_unit(L, npad: int):
-    """(n, n) unit-lower L padded to (npad, npad) with an identity tail."""
-    n = L.shape[0]
-    Lp = L.new_zeros((npad, npad))
-    Lp[:n, :n] = L
-    tail = torch.arange(n, npad, device=L.device)
-    Lp[tail, tail] = 1
-    return Lp
 
 
 def _pad_vec(v, npad: int, fill: float = 0.0):
@@ -285,18 +265,12 @@ def _fwd_sweep(Lp, inv, b):
     return y
 
 
-def ldlt_solve_blocks(L, d, invb, b):
-    """(L diag(d) L^T) x = b from :func:`ldlt_factor_blocks` factors (L, d
-    unpadded or already padded to the grid of ``invb``): forward block
-    substitution, diagonal scale, the backward sweep kernel."""
-    n = b.shape[0]
-    npad = invb.shape[0] * invb.shape[-1]
-    if L.shape[0] == npad:
-        Lp, dp = L, d
-    else:
-        Lp, dp = _pad_unit(L, npad), _pad_vec(d, npad, 1.0)
-    z = _fwd_sweep(Lp, invb, _pad_vec(b, npad)) / _safe(dp)
-    return bwd_sweep_blocks(Lp, z, invb)[:n]
+def ldlt_solve_blocks(Lp, dp, invb, b):
+    """(L diag(d) L^T) x = b from :func:`ldlt_factor_blocks` factors
+    (padded to the grid of ``invb``): forward block substitution,
+    diagonal scale, the backward sweep kernel."""
+    z = _fwd_sweep(Lp, invb, _pad_vec(b, Lp.shape[0])) / _safe(dp)
+    return bwd_sweep_blocks(Lp, z, invb)[:b.shape[0]]
 
 
 def ldlt_solve_blocks_bwd(Lp, dp, invb, y):
@@ -321,15 +295,6 @@ def ldlt_solve_panels_bwd(Lp, dp, invp, y):
     returns the padded (npad,) solution, as the JAX function does."""
     z = _pad_vec(y, Lp.shape[0]) / _safe(dp)
     return bwd_sweep_panels(Lp, z, invp)
-
-
-def ldlt_solve(L, d, b):
-    """(L diag(d) L^T) x = b for one (n, n) factor and b (n,), by
-    triangular solves."""
-    y = _solve_unit_lower(L, b[:, None])
-    z = y / _safe(d)[:, None]
-    return torch.linalg.solve_triangular(L.T, z, upper=True,
-                                         unitriangular=True)[:, 0]
 
 
 def _reg_solve_large(H, g, delta, mu, *, nvar, neq, nineq, eps, reg_coef,
@@ -365,16 +330,13 @@ def _reg_solve_large(H, g, delta, mu, *, nvar, neq, nineq, eps, reg_coef,
     if want_solver:
         factor_fn, solve_fn, bwd_fn = (ldlt_factor_blocks, ldlt_solve_blocks,
                                        ldlt_solve_blocks_bwd)
-        fkw = dict(pad_to_grid=True)
     else:
         factor_fn, solve_fn, bwd_fn = (ldlt_factor_panels, ldlt_solve_panels,
                                        ldlt_solve_panels_bwd)
-        fkw = {}
 
     def factor(Hm):
         with annotate("ipm-kkt-factor", dev):
-            return factor_fn(Hm, block=block, group=group, rhs=rhs_fold,
-                             **fkw)
+            return factor_fn(Hm, block=block, group=group, rhs=rhs_fold)
 
     def first_solve(f):
         with annotate("ipm-kkt-solve", dev):

@@ -24,7 +24,11 @@ state a batch of one: the same ``SolverState``, with x and delta the
 rank's (Kl, ...) block slabs, ``s`` the (s, sc) pair and ``lda`` the
 (le, li, lc, lci) multipliers.
 
-The per-block L-BFGS mode (``cfg.lbfgs > 0``) is not ported yet.
+With ``cfg.lbfgs > 0`` each block keeps a compact L-BFGS memory (the
+state's ``lbfgs``, every field with a leading block axis, and ``x_old``)
+and the per-block factorization gives way to a Woodbury operator over a
+diagonal base, O(d (2m + ni)) a block: no (d, d) matrix is ever formed
+(JAX schur.py:772-891).
 """
 
 from __future__ import annotations
@@ -38,13 +42,16 @@ from torch.func import grad, hessian, jacfwd, jacrev, vmap
 
 from pyipm_tpu_torch import _sync
 from pyipm_tpu_torch.config import IPMConfig
+from pyipm_tpu_torch.core.lbfgs import (
+    LBFGSState, _masked_mem, _padded_middle, lbfgs_init, lbfgs_update,
+)
 from pyipm_tpu_torch.core.linesearch import max_step_ftb, merit_line_search
 from pyipm_tpu_torch.core.solver import (
     LoopEngine, MetricsHistory, SolverState, _phase,
 )
 from pyipm_tpu_torch.core.updates import nu_threshold
 from pyipm_tpu_torch.models.random_nlp import resolve_device
-from pyipm_tpu_torch.ops.linalg import batched_reg_factor
+from pyipm_tpu_torch.ops.linalg import _eq_reg_term, batched_reg_factor
 from pyipm_tpu_torch.parallel.reduce import Reducer
 from pyipm_tpu_torch.utils import profiling
 
@@ -290,6 +297,18 @@ class _Ops:
                 rx = rx - (li * self.im(th) if self.imk else li)
             else:
                 rx = rx - torch.einsum("knd,kn->kd", self.Ji_v(x, th), li)
+        return rx
+
+    def rx_coupled_at(self, x, th, ccdata, le, li, lc, lci):
+        """The whole gradient of the Lagrangian at ``x`` under the given
+        multipliers, its coupling part included (JAX schur.py:773-786):
+        one reduction of u(x), none with linear coupling, whose w does
+        not depend on u."""
+        rx = self.rx_at(x, th, le, li)
+        if self.has_cc:
+            w = self.coupling_state(x, th, ccdata, lc, lci,
+                                    defer_u=self.lin_cc)[5]
+            rx = rx - torch.einsum("kpd,p->kd", self.G_v(x, th), w)
         return rx
 
     def residual_blocks(self, x, s, sc, le, li, lc, lci, th, ccdata, mu,
@@ -600,15 +619,150 @@ class _Ops:
                                  rhs)
         return lda_blk[:, :me], lda_blk[:, me:], zc[:mc], zc[mc:]
 
+    # --- per-block L-BFGS (schur.py:772-891) --------------------------
+    def lbfgs_mem_update(self, mem, x, x_old, rx_cur, le, li, lc, lci, th,
+                         ccdata, not_first):
+        """Every block's curvature pair dx = x - x_old, dg = rx(x) -
+        rx(x_old), both ends under the current multipliers, taken into
+        its memory where ``not_first`` (0-dim): the very first inner
+        iteration keeps the memory (reference pyipm.py:1705)."""
+        rx_old = self.rx_coupled_at(x_old, th, ccdata, le, li, lc, lci)
+        new = lbfgs_update(
+            mem, x - x_old, rx_cur - rx_old,
+            constrained=(self.me + self.ni + self.mc + self.mci) > 0,
+            eps=self.eps, zeta0=self.cfg.zeta0,
+            fail_max=self.cfg.lbfgs_fail_max)
+        return LBFGSState(*(torch.where(not_first, a, b)
+                            for a, b in zip(new, mem)))
+
+    def lbfgs_prep(self, mem, sig, Ji, Je, th, mu):
+        """The condensed block solve from the compact memory: B_k = zeta I
+        - W M^-1 W^T (the middle matrix of core/lbfgs.py), A_k = B_k +
+        Ji^T Sigma Ji by Sherman-Morrison-Woodbury over a diagonal base,
+        the equality rows by a per-block (me x me) Schur complement.
+        Returns (solve_blk, hess_mv, eq_app)."""
+        d, me, ni, dt = self.d, self.me, self.ni, self.dtype
+        Kl = mem.S.shape[0]
+        zeta = mem.zeta
+        Sm, Ym, SS, Lm, Dv, valid = _masked_mem(mem, True)
+        Mmid = _padded_middle(SS, Lm, Dv, valid, zeta)
+        Wlb = torch.cat([zeta[:, None, None] * Sm, Ym], dim=2)
+        m2 = Wlb.shape[2]
+        # Mmid and the core below are indefinite: LU, not Cholesky
+        Mlu, Mpiv, _ = torch.linalg.lu_factor_ex(Mmid)
+
+        def hess_mv(dx_):                                # B dx
+            t = torch.einsum("kdm,kd->km", Wlb, dx_)
+            v = torch.linalg.lu_solve(Mlu, Mpiv, t[..., None])[..., 0]
+            return zeta[:, None] * dx_ - torch.einsum("kdm,km->kd", Wlb, v)
+
+        # A = diag(D0) + V Lam V^T with Lam = blockdiag(-M^-1, I)
+        if ni and self.iid:
+            D0 = zeta[:, None] + sig                     # Sigma folded
+            V, Lam_inv = Wlb, -Mmid
+        elif ni:
+            D0 = zeta[:, None].expand(Kl, d)
+            V = torch.cat([Wlb, Ji.transpose(1, 2)
+                           * torch.sqrt(sig)[:, None, :]], dim=2)
+            Lam_inv = self.zeros(Kl, m2 + ni, m2 + ni)
+            Lam_inv[:, :m2, :m2] = -Mmid
+            Lam_inv[:, m2:, m2:] = torch.eye(ni, dtype=dt,
+                                             device=Mmid.device)
+        else:
+            D0 = zeta[:, None].expand(Kl, d)
+            V, Lam_inv = Wlb, -Mmid
+        core = Lam_inv + torch.einsum("kdp,kd,kdq->kpq", V, 1.0 / D0, V)
+        Clu, Cpiv, _ = torch.linalg.lu_factor_ex(core)
+
+        def a_inv(R):                                    # (Kl, d, r)
+            t = R / D0[..., None]
+            v = torch.linalg.lu_solve(Clu, Cpiv,
+                                      torch.einsum("kdp,kdr->kpr", V, t))
+            return t - torch.einsum("kdp,kpr->kdr", V, v) / D0[..., None]
+
+        if not me:
+            return a_inv, hess_mv, self.zeros(Kl)
+        T = a_inv(Je.transpose(1, 2))                    # (Kl, d, me)
+        Se = torch.einsum("kmd,kdn->kmn", Je, T)
+        ev = torch.abs(torch.linalg.eigvalsh(Se))
+        rcond = (torch.amin(ev, dim=-1)
+                 / torch.clamp(torch.amax(ev, dim=-1), min=self.tiny))
+        finite = torch.all(torch.isfinite(ev), dim=-1)
+        reg = _eq_reg_term(mu, self.cfg.reg_coef, self.cfg.eta,
+                           self.cfg.beta)
+        eq_app = torch.where((rcond <= self.eps) | ~finite, reg,
+                             self.zeros(Kl))
+        Se = Se + eq_app[:, None, None] * torch.eye(me, dtype=dt,
+                                                    device=Se.device)
+        if self.emk:
+            # identity-pin inactive (masked) equality rows
+            Se = Se + torch.diag_embed(1.0 - self.em(th))
+        ch = self._chol(Se)
+
+        def solve_blk(rhs):                              # (Kl, n, r)
+            t = a_inv(rhs[:, :d, :])
+            y = self._cho_solve(
+                ch, torch.einsum("kmd,kdr->kmr", Je, t) - rhs[:, d:, :])
+            return torch.cat([t - torch.einsum("kdm,kmr->kdr", T, y), y],
+                             dim=1)
+
+        return solve_blk, hess_mv, eq_app
+
+    # --- the exact-Hessian block solve (schur.py:964-1001) -------------
+    def exact_block_solve(self, x, th, le, li, w, sig, Ji, Je, delta, mu):
+        """Every block's condensed (d + me)^2 matrix from its Lagrangian
+        Hessian, factored with inertia correction.  Returns (solve_blk,
+        hess_mv, delta_new, retries, eq_app)."""
+        cfg, d, me, ni, n = self.cfg, self.d, self.me, self.ni, self.n
+        W = self.W_v(x, th, le, li, w)
+        if ni and self.iid:
+            A = W.clone()
+            A.diagonal(dim1=1, dim2=2).add_(sig)
+        elif ni:
+            A = W + torch.einsum("kdn,kn,kne->kde", Ji.transpose(1, 2),
+                                 sig, Ji)
+        else:
+            A = W
+        if me:
+            M = self.zeros(x.shape[0], n, n)
+            M[:, :d, :d] = A
+            M[:, :d, d:] = Je.transpose(1, 2)
+            M[:, d:, :d] = Je
+            if self.emk:
+                # identity-pin inactive equality rows (diagonal -1 keeps
+                # the inertia target at me negative pivots)
+                M[:, d:, d:].diagonal(dim1=1, dim2=2).add_(self.em(th) - 1.0)
+        else:
+            M = A
+        M = (M + M.transpose(1, 2)) * 0.5
+        del A
+        solve_blk, delta_new, retries, (delta_app, eq_app) = \
+            batched_reg_factor(
+                M, delta, mu, neq=me, eps=self.eps, reg_coef=cfg.reg_coef,
+                eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0,
+                max_retries=cfg.max_reg_retries, block=cfg.ldlt_block)
+        del M
+
+        def hess_mv(dx_):
+            return (torch.einsum("kde,ke->kd", W, dx_)
+                    + delta_app[:, None] * dx_)
+
+        return solve_blk, hess_mv, delta_new, retries, eq_app
+
     # --- the direction (schur.py:892-1377) ----------------------------
-    def direction(self, x, s, sc, le, li, lc, lci, th, ccdata, mu, delta):
+    def direction(self, x, s, sc, le, li, lc, lci, th, ccdata, mu, delta,
+                  lbfgs=None, x_old=None, not_first=None):
         """The condensed Newton step through the coupling border.
 
-        Returns (steps, pending, resolve, delta_new, retries, mu_new):
-        ``steps`` = (dx, ds, dsc, dae, db, dbc, dac) with the pre-flip
-        multiplier signs of ops/condensed.py; ``pending`` the refinement
-        guard's last candidate, decided on the caller's fused reduction
-        (or None); ``resolve`` the same-matrix SOC solve."""
+        Returns (steps, pending, resolve, delta_new, retries, mu_new,
+        lbfgs_new): ``steps`` = (dx, ds, dsc, dae, db, dbc, dac) with the
+        pre-flip multiplier signs of ops/condensed.py; ``pending`` the
+        refinement guard's last candidate, decided on the caller's fused
+        reduction (or None); ``resolve`` the same-matrix SOC solve.  In
+        L-BFGS mode the memory ``lbfgs`` takes the pair from ``x_old``
+        where ``not_first`` and the block solve is its Woodbury operator;
+        ``lbfgs_new`` is the updated memory (None in exact-Hessian
+        mode)."""
         cfg, red, spec = self.cfg, self.red, self.spec
         d, me, ni, p, mc, mci, n = (self.d, self.me, self.ni, self.p,
                                     self.mc, self.mci, self.n)
@@ -632,6 +786,7 @@ class _Ops:
         g2c, g4c = -rsc, -rcci
         sigc = lci / (sc + guard) if mci else self.zeros(0)
 
+        Ji = Je = None                  # never built on the identity path
         if ni:
             sig = li / (s + guard)
             if iid and imk:
@@ -654,39 +809,22 @@ class _Ops:
 
         if me:
             Je = self.Je_v(x, th)
-            JeT = Je.transpose(1, 2)
 
-        W = self.W_v(x, th, le, li, w)
-        if ni and iid:
-            A = W.clone()
-            A.diagonal(dim1=1, dim2=2).add_(sig)
-        elif ni:
-            A = W + torch.einsum("kdn,kn,kne->kde", JiT, sig, Ji)
+        if cfg.lbfgs:
+            # the compact per-block operator: no W, no M, no d^3 factor;
+            # B is positive definite by the curvature guard, so there are
+            # no inertia retries and no shift
+            lbfgs_new = self.lbfgs_mem_update(lbfgs, x, x_old, rx, le, li,
+                                              lc, lci, th, ccdata,
+                                              not_first)
+            solve_blk, hess_mv, eq_app = self.lbfgs_prep(lbfgs_new, sig, Ji,
+                                                         Je, th, mu)
+            delta_new, retries = delta, 0
         else:
-            A = W
-        if me:
-            M = self.zeros(Kl, n, n)
-            M[:, :d, :d] = A
-            M[:, :d, d:] = JeT
-            M[:, d:, :d] = Je
-            if emk:
-                # identity-pin inactive equality rows (diagonal -1 keeps
-                # the inertia target at me negative pivots)
-                M[:, d:, d:].diagonal(dim1=1, dim2=2).add_(self.em(th) - 1.0)
-        else:
-            M = A
-        M = (M + M.transpose(1, 2)) * 0.5
-        del A
-        solve_blk, delta_new, retries, (delta_app, eq_app) = \
-            batched_reg_factor(
-                M, delta, mu, neq=me, eps=self.eps, reg_coef=cfg.reg_coef,
-                eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0,
-                max_retries=cfg.max_reg_retries, block=cfg.ldlt_block)
-        del M
-
-        def hess_mv(dx_):
-            return (torch.einsum("kde,ke->kd", W, dx_)
-                    + delta_app[:, None] * dx_)
+            lbfgs_new = None
+            solve_blk, hess_mv, delta_new, retries, eq_app = \
+                self.exact_block_solve(x, th, le, li, w, sig, Ji, Je, delta,
+                                       mu)
 
         border = {}          # linear coupling: filled at the first solve
         if has_cc:
@@ -965,7 +1103,8 @@ class _Ops:
             dsc_p = Jcci @ vp - g4cn if mci else self.zeros(0)
             return dx_p, ds_p, dsc_p
 
-        return steps, pending, resolve, delta_new, retries, mu_new
+        return (steps, pending, resolve, delta_new, retries, mu_new,
+                lbfgs_new)
 
 
 def _ftb(z, dz, tau):
@@ -996,10 +1135,6 @@ class BlockSolver(LoopEngine):
             # progress lines would interleave across ranks; the result
             # reports signal, kkt and iter_count (JAX schur.py:223-227)
             cfg = cfg.replace(verbosity=0)
-        if cfg.lbfgs > 0:
-            raise NotImplementedError(
-                "the block solver's per-block L-BFGS mode (cfg.lbfgs > 0) "
-                "is not ported yet: ROADMAP Queue 1 item 13")
         self.spec, self.config, self.mesh, self.axis = spec, cfg, mesh, axis
         self.device = resolve_device(device)
         self.reducer = Reducer(None if mesh is None else mesh.get_group(axis))
@@ -1097,10 +1232,17 @@ class BlockSolver(LoopEngine):
         x = st.x
         mu, nu0 = st.mu[0], st.nu[0]
         dev = x.device
+        not_first = ((st.outer > 0) | (st.inner > 0))[0]
         with profiling.annotate("ipm-direction", dev):
-            steps_main, pending, resolve, delta_new, retries, mu_new = \
-                ops.direction(x, s_blk, sc, le, li, lc, lci, th, ccdata,
-                              mu, st.delta)
+            (steps_main, pending, resolve, delta_new, retries, mu_new,
+             lbfgs_new) = ops.direction(
+                 x, s_blk, sc, le, li, lc, lci, th, ccdata, mu, st.delta,
+                 lbfgs=st.lbfgs, x_old=st.x_old, not_first=not_first)
+        if cfg.lbfgs:
+            # the memory moved inside the direction, before the line
+            # search: a rejected step keeps it (JAX schur.py:1393-1400)
+            st = st._replace(lbfgs=lbfgs_new,
+                             x_old=torch.where(not_first, x, st.x_old))
 
         # the post-direction reductions, fused: the retry count, the merit
         # penalty's l1 parts, the pooled features, the merit entry value's
@@ -1401,12 +1543,16 @@ class BlockSolver(LoopEngine):
             T = cfg.niter * cfg.miter
             hist = MetricsHistory(ops.zeros(1, T, 4),
                                   *(ops.zeros(1, T) for _ in range(4)))
+        # L-BFGS: every block's memory, x_old seeding the first pair
+        mem = (lbfgs_init(Kl, ops.d, cfg.lbfgs_mem, cfg.zeta0, ops.dtype,
+                          dev) if cfg.lbfgs else None)
         return SolverState(
             x=x, s=(s, sc), lda=(le, li, lc, lci), mu=_one(mu0),
             nu=_one(ops.zeros() + cfg.nu), delta=ops.zeros(Kl),
             kkt=kkt0[None], signal=i32(), iter_count=i32(), outer=i32(),
             inner=i32(), inner_done=no(), in_inner=no(), f_past=_one(f_past),
-            alpha=_one(ops.zeros()), reg_retries=i32(), g=g0, hist=hist)
+            alpha=_one(ops.zeros()), reg_retries=i32(), lbfgs=mem,
+            x_old=x if cfg.lbfgs else None, g=g0, hist=hist)
 
     def run_budget(self, state: SolverState, theta, ccdata=None,
                    max_new_iters=1) -> SolverState:
@@ -1457,8 +1603,9 @@ def make_block_solver(spec: BlockNLP, mesh=None,
     max_new_iters)``, ``fn.run(state, theta, ccdata)`` and
     ``fn.finalize``.  ``mesh`` (a DeviceMesh) splits the K blocks over
     the ranks of its ``axis`` dimension (K divisible); None runs one
-    process.  ``device`` None means the card.  Raises
-    ``NotImplementedError`` for ``config.lbfgs > 0``."""
+    process.  ``device`` None means the card.  ``config.lbfgs > 0``
+    approximates each block's Hessian by its own compact L-BFGS memory
+    of that many pairs (the state's ``lbfgs``, split with the blocks)."""
     return BlockSolver(spec, mesh, config, axis, device)
 
 
@@ -1703,3 +1850,37 @@ def sample_block_ragged(gen: torch.Generator, K: int, d: int = 4,
     return (block_ragged_spec(d, me, ni, p, mc), theta, ccdata,
             torch.zeros((K, d), dtype=dtype, device=dev), me_counts,
             ni_counts)
+
+
+def _diag_quad(xk, th):
+    return 0.5 * xk @ (th["q"] * xk) + th["c"] @ xk
+
+
+def block_box_quadratic_spec(d: int, p: int) -> BlockNLP:
+    """Diagonal quadratic blocks 0.5 x'diag(q)x + c'x (theta ``q``,
+    ``c``), bounds x >= lb through the identity Jacobian (``lb``) and
+    linear coupling sum_k A_k x_k = b over p features (``A``; ccdata
+    ``b``): no (d, d) data, the per-block L-BFGS mode's large-block
+    family (JAX benchmarks/bench_lbfgs_block.py:48-70)."""
+    return BlockNLP(
+        f_blk=_diag_quad, d=d, ci_blk=box_ci("lb"), ni=d, ci_identity=True,
+        g_blk=lambda xk, th: th["A"] @ xk, cc=lambda u, ccd: u - ccd["b"],
+        p=p, mc=p)
+
+
+def sample_block_box_quadratic(gen: torch.Generator, K: int, d: int,
+                               p: int = 4, dtype=torch.float32,
+                               device=None):
+    """A random instance of :func:`block_box_quadratic_spec`: q = 0.5 +
+    U(0, 1), c ~ N(0, 1), A ~ N(0, 1)/sqrt(K d), lb = -3, b = A x_feas
+    with x_feas ~ 0.1 N(0, 1).  Returns (spec, theta, ccdata, x0)."""
+    dev = resolve_device(device)
+    q = 0.5 + torch.rand((K, d), generator=gen, dtype=dtype, device=dev)
+    c = _randn(gen, (K, d), dtype, dev)
+    A = _randn(gen, (K, p, d), dtype, dev) / float(np.sqrt(K * d))
+    lb = torch.full((K, d), -3.0, dtype=dtype, device=dev)
+    xfeas = _randn(gen, (K, d), dtype, dev) * 0.1
+    theta = {"q": q, "c": c, "A": A, "lb": lb}
+    ccdata = {"b": torch.einsum("kpd,kd->p", A, xfeas)}
+    return (block_box_quadratic_spec(d, p), theta, ccdata,
+            torch.zeros((K, d), dtype=dtype, device=dev))

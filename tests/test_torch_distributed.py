@@ -3,7 +3,8 @@ CLI, cluster mode), ``parallel/distributed.py`` on gloo, the Schur
 solver split over 2 ranks against 1 rank (tests/torch_schur_worker.py),
 its all-reduces per inner iteration against the JAX package's collective
 census (benchmarks/results/r05/collective_census.json: 12 lowered for
-``weakscale_like_d16_linear_cc``, 15 for ``general_coupled_adaptive``),
+``weakscale_like_d16_linear_cc``, 15 for ``general_coupled_adaptive``,
+16 for ``general_coupled_lbfgs``),
 the batch-axis fleet at 2 ranks against 1 (cold and warm-started), the
 three new examples, and
 that no module of the port imports JAX.  Every multi-rank run goes
@@ -72,7 +73,7 @@ def ranks_runs(tmp_path_factory):
         os.chdir(cwd)
 
 
-@pytest.mark.parametrize("case", ["separable", "general"])
+@pytest.mark.parametrize("case", ["separable", "general", "lbfgs"])
 def test_two_ranks_match_one(ranks_runs, case):
     one, two = ranks_runs[1], ranks_runs[2]
     assert int(two[case + "_sig"]) == int(one[case + "_sig"]) == 1
@@ -83,13 +84,15 @@ def test_two_ranks_match_one(ranks_runs, case):
 
 @pytest.mark.parametrize("case,census_name", [
     ("linear_cc", "weakscale_like_d16_linear_cc"),
-    ("coupled", "general_coupled_adaptive")])
+    ("coupled", "general_coupled_adaptive"),
+    ("lbfgs", "general_coupled_lbfgs")])
 def test_all_reduces_per_iteration_within_the_census(ranks_runs, case,
                                                      census_name):
     rows = json.loads((REPO / "benchmarks" / "results" / "r05"
                        / "collective_census.json").read_text())["rows"]
     bound = {r["config"]: r["lowered"]["all_reduce"] for r in rows}
-    assert bound[census_name] == {"linear_cc": 12, "coupled": 15}[case]
+    assert bound[census_name] == {"linear_cc": 12, "coupled": 15,
+                                  "lbfgs": 16}[case]
     for n in (1, 2):
         calls = int(ranks_runs[n][case + "_calls"])
         assert 0 < calls <= bound[census_name], (n, calls)

@@ -11,7 +11,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from pyipm_tpu_torch.examples import (  # noqa: E402
-    batched_fleet, heterogeneous_fleet, mpc_receding_horizon, quickstart,
+    batched_fleet, block_lbfgs_and_ragged, heterogeneous_fleet,
+    mpc_receding_horizon, quickstart,
 )
 
 
@@ -41,3 +42,9 @@ def test_mpc_receding_horizon():
     (cold, warm), out = _quiet(mpc_receding_horizon.main, T=6, ticks=4)
     assert len(cold) == 5 and len(warm) == 4
     assert "warm starts save" in out
+
+
+def test_block_lbfgs_and_ragged():
+    (res, rres), out = _quiet(block_lbfgs_and_ragged.main, d=64)
+    assert res.x.shape == (8, 64) and rres.x.shape == (8, 4)
+    assert "OK" in out

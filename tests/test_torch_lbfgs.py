@@ -15,8 +15,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-from torch.utils._pytree import tree_leaves  # noqa: E402
 
 from pyipm_tpu import IPMConfig as JCfg  # noqa: E402
 from pyipm_tpu import make_problem as j_make_problem  # noqa: E402
@@ -35,6 +33,7 @@ from pyipm_tpu_torch.models import REFERENCE_PROBLEMS as T_REF  # noqa: E402
 from pyipm_tpu_torch.models.random_nlp import (  # noqa: E402
     make_dense_nlp_problem, sample_dense_arrays,
 )
+from torch_shapes import Shapes  # noqa: E402
 
 EPS = float(np.finfo(np.float64).eps)
 
@@ -241,21 +240,6 @@ def test_lbfgs_dense_solve_matches_jax_d4096():
     _dense_solves(4096, 8, 256)
 
 
-class _Shapes(TorchDispatchMode):
-    """Records the shape of every tensor an operator returns."""
-
-    def __init__(self):
-        super().__init__()
-        self.shapes = set()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        for t in tree_leaves(out):
-            if isinstance(t, torch.Tensor):
-                self.shapes.add(tuple(t.shape))
-        return out
-
-
 def test_lbfgs_never_forms_the_kkt_matrix():
     """An L-BFGS solve at D = 256, M = 4 returns no tensor with two trailing
     dimensions of the composite size D+M or more (test_lbfgs_large.py:66
@@ -265,7 +249,7 @@ def test_lbfgs_never_forms_the_kkt_matrix():
     arr = sample_dense_arrays(2, D, M, 16, np.float64)
     data = dense_from_numpy(arr, device="cpu")
     cfg = IPMConfig(float_dtype="float64", verbosity=0, lbfgs=8)
-    with _Shapes() as rec:
+    with Shapes() as rec:
         r = solve(make_dense_nlp_problem(D, M),
                   torch.zeros(D, dtype=torch.float64), cfg, params=data)
     assert int(r.signal) in (1, 2)

@@ -4,8 +4,8 @@ inequality under Mehrotra, ragged masks, the overdetermined
 least-squares init, a JAX state paused at 3 iterations finished in the
 port, resource allocation with both caps), then the port against itself
 where the JAX tests hold the JAX package against itself (test_schur.py
-:317, :355, :383, :664, :860, :897), the per-block L-BFGS mode's
-``NotImplementedError``, and the checkpoint of a block state."""
+:317, :355, :383, :664, :860, :897), and the checkpoint of a block
+state (the per-block L-BFGS mode: tests/test_torch_schur_lbfgs.py)."""
 
 import dataclasses
 
@@ -287,12 +287,6 @@ def test_refinement_knobs_solve(knobs):
     assert int(ref.signal) == int(r.signal) == 1
     np.testing.assert_allclose(r.x.numpy(), ref.x.numpy(), rtol=0,
                                atol=5e-4)
-
-
-def test_lbfgs_mode_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        TS.make_block_solver(TS.block_general_spec(3), None,
-                             TCfg(lbfgs=4), device="cpu")
 
 
 def test_samplers_draw_feasible_instances():

@@ -1,13 +1,14 @@
 """Worker for tests/test_torch_distributed.py, started by the port's
 launcher (``python -m pyipm_tpu_torch.parallel.launch --spawn N``): joins
 the ranks through the ``PYIPM_*`` environment on gloo, solves the same
-block-separable instances at any world size (each rank its blocks), and
-rank 0 writes every solve's signal, iterations and x, and the most
-all-reduces any inner iteration asked for, and a batch-axis fleet solved
-cold and with per-instance warm starts (mu0, nu0), to the ``.npz`` named
-by its argument.  ``--fail-rank R`` makes rank R exit 3 before joining (the
-launcher's fail-fast fixture).  ``main([path])`` runs it in the calling
-process at world size 1."""
+block-separable instances at any world size (each rank its blocks, in
+exact-Hessian and in L-BFGS mode), and rank 0 writes every solve's
+signal, iterations and x, and the most all-reduces any inner iteration
+asked for, and a batch-axis fleet solved cold and with per-instance warm
+starts (mu0, nu0), to the ``.npz`` named by its argument.
+``--fail-rank R`` makes rank R exit 3 before joining (the launcher's
+fail-fast fixture).  ``main([path])`` runs it in the calling process at
+world size 1."""
 
 import os
 import sys
@@ -65,6 +66,8 @@ def main(argv=None):
     spec, th, cc, x0 = TS.sample_block_general(g, 8, 3, me=1, ni=2, p=2,
                                                mc=1, device="cpu")
     solve("general", spec, th, cc, x0, f64)
+    solve("lbfgs", spec, th, cc, x0, f64.replace(lbfgs=6, niter=20,
+                                                   miter=40))
 
     # the collective census's configurations (float32, defaults)
     f32 = IPMConfig(float_dtype="float32", verbosity=0)
@@ -75,6 +78,12 @@ def main(argv=None):
             device="cpu", **kw)
         fn = TS.make_block_solver(spec, mesh, f32, device="cpu")
         out[name + "_calls"] = per_iteration_calls(fn, x0, th, cc)
+        if name == "coupled":
+            # the census's L-BFGS row: the same instance, L-BFGS(6)
+            fn = TS.make_block_solver(
+                spec, mesh, f32.replace(lbfgs=6, niter=20, miter=40),
+                device="cpu")
+            out["lbfgs_calls"] = per_iteration_calls(fn, x0, th, cc)
     # the batch axis: examples/distributed_fleet.py's fleet, then with
     # per-instance warm starts mu0, nu0 (B,), split with the batch
     bmesh = (dist.global_solver_mesh(batch=ranks, model=1, device="cpu")
