@@ -13,8 +13,10 @@ Phases, each raising on failure:
      batch slice; the solve at every lane layout (n = 1 to 128), with and
      without its row scale, bitwise repeatable, and against a
      backward-error bound; both also at phase 16's sizes (n = 40, 65,
-     67, 80, 96 and 97, B = 2,048); both timed at (10000, 16) and
-     (10000, 36), the factor also at (512, 128);
+     67, 80, 96 and 97, B = 2,048); the factor bitwise on exact zero
+     pivots, NaN and Inf at n = 65, 100 and 128; both timed at (10000,
+     16) and (10000, 36), the factor also at (512, 128) and at phase
+     16's sizes above 64 (its wide branch);
   4. slice A: the 10,000-QP float32 fleet through ``solve_batch`` on
      cuda:0, launch counters reset just before the timed solve;
   5. the same first 64 instances on CPU tensors (the plain path) against
@@ -52,7 +54,8 @@ Phases, each raising on failure:
      D = 16, each bucket alone and then all with reference problem 5 in
      one call; per bucket the hit rate, iterations, wall, kernel 1-2
      launches by n and the structural checks of the JAX package's
-     test_applications.py (a bucket under 0.99 is run again in float64);
+     test_applications.py (a bucket under 0.99 is run again in float64),
+     and a digest (sha256) of each bucket's signals, iterations and x;
  17. ``profile_solve`` of phase 13's wave fleet, ``trace()`` around a
      fleet solve with all six phase scopes in the trace, ``trace_metrics``
      on the fleet (unchanged to the bit, its history's bytes, instance 0's
@@ -107,6 +110,7 @@ one CUDA card and the repository checkout.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -128,6 +132,10 @@ KERNEL_SHAPES = ((10_000, 16), (10_000, 36), (129, 36), (1, 16), (512, 128))
 # at the buckets' batch
 PATH_B = 2048
 PATH_SHAPES = tuple((PATH_B, n) for n in (40, 65, 67, 80, 96, 97))
+# those of kernel 1's wide branch (64 < n <= 128), timed in phase 3; the
+# kernels line's wide row is the SVM's n = 97
+WIDE_SHAPES = tuple((Bn, n) for Bn, n in PATH_SHAPES if n > 64)
+WIDE_ROW_SHAPE = (PATH_B, 97)
 # the solve kernel's lane layouts (half-warps to n = 16, then 1 to 4 entries
 # per lane), at a batch that fills no CTA evenly; at the odd sizes from 69
 # a CTA holds one or two instances, so most CTAs' factors start off a
@@ -140,6 +148,9 @@ SOLVE_B = 1003
 FACTOR_SIZES = (1, 2, 15, 16, 17, 31, 32, 33, 36, 48, 49, 63, 64, 65, 69,
                 95, 97, 127, 128)
 FACTOR_REPEATS = 20
+# the factor held bitwise on exact zero pivots, NaN and Inf at sizes of the
+# wide branch (and one below it)
+SPECIAL_SIZES = (65, 100, 128)
 # a library call slower than this is timed again at LIBRARY_SMALL_B
 LIBRARY_SLOW_S, LIBRARY_SMALL_B = 30.0, 1000
 # |L D L^T x - b| <= RESIDUAL_C n eps (|L||D||L^T||x| + |b|), per entry
@@ -318,6 +329,14 @@ def same_bits(a, b):
             and torch.equal(a.view(it)[~na], b.view(it)[~nb]))
 
 
+def digests(signal, iters, x):
+    """The first 16 hex digits of the sha256 of each tensor's bytes: two
+    runs that print the same digests gave the same bits."""
+    return {k: hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                              .tobytes()).hexdigest()[:16]
+            for k, t in (("signal", signal), ("iters", iters), ("x", x))}
+
+
 def library_ms(fn, what):
     """(ms, warm-up s): one call timed with CUDA events after a warm-up
     call; ms is None if the call raises or the warm-up took more than
@@ -435,6 +454,8 @@ def check_small_kernels(sl, device):
             if dtype == torch.float32 and (Bn, n) in TIMED_SHAPES:
                 err["factor"] = max(err["factor"], e_factor)
                 err["solve"] = max(err["solve"], e_solve)
+            if dtype == torch.float32 and (Bn, n) == WIDE_ROW_SHAPE:
+                err["factor_wide"] = e_factor
 
         # the solve at every lane layout, with and without the row scale
         worst, wide = 0.0, 0
@@ -498,6 +519,7 @@ def check_small_kernels(sl, device):
               f"B={SOLVE_B} (203 above 36), half indefinite: bitwise equal to "
               f"the plain version, over {FACTOR_REPEATS} more calls, and on "
               f"the slice A[1:]", flush=True)
+        hold_special_values(sl, gen, dtype, device)
 
     times = {}
     for Bn, n in TIMED_SHAPES:
@@ -560,18 +582,51 @@ def check_small_kernels(sl, device):
               f"{t['solve_scaled_outside']:.4f} ms), CUDA events, median",
               flush=True)
 
-    # the factor alone at the CTA scheme's largest size
-    Bn, n = FACTOR_ONLY_SHAPE
-    A = rand_sym(gen, Bn, n, torch.float32, device)
-    times[n] = t = factor_timings(sl, A, plain_reps=3)
-    print(f"  f32 B={Bn} n={n}: factor {t['factor']:.4f} ms (device "
-          f"{t['factor_device'][0]:.4f} ms per launch in "
-          f"{t['factor_device'][2]} launches per call by "
-          f"{t['factor_device'][1]}, the "
-          f"wrapper at B=1 {t['factor_floor']:.4f} ms, plain "
-          f"{t['factor_plain']:.4f} ms, bound {t['factor_bound'][0]:.5f} ms "
-          f"by {t['factor_bound'][1]}), CUDA events, median", flush=True)
+    # the factor alone at the wide branch's largest size and at phase 16's
+    # sizes above 64
+    for Bn, n in (FACTOR_ONLY_SHAPE,) + WIDE_SHAPES:
+        A = rand_sym(gen, Bn, n, torch.float32, device)
+        times[n] = t = factor_timings(sl, A, plain_reps=3)
+        print(f"  f32 B={Bn} n={n}: factor {t['factor']:.4f} ms (device "
+              f"{t['factor_device'][0]:.4f} ms per launch in "
+              f"{t['factor_device'][2]} launches per call by "
+              f"{t['factor_device'][1]}, the "
+              f"wrapper at B=1 {t['factor_floor']:.4f} ms, plain "
+              f"{t['factor_plain']:.4f} ms, bound {t['factor_bound'][0]:.5f} "
+              f"ms by {t['factor_bound'][1]}), CUDA events, median",
+              flush=True)
     return err, times
+
+
+def hold_special_values(sl, gen, dtype, device):
+    """The factor bitwise equal to its plain version (NaN at the same
+    entries) at SPECIAL_SIZES in ``dtype``: a panel with exact zero pivots
+    (divided by 1), and batches of 6 with a NaN or an Inf below the
+    diagonal of one instance and at the first pivot of another (a NaN
+    pivot divides by 1 too), whose pivots must come out non-finite."""
+    for n in SPECIAL_SIZES:
+        cases = [("zero pivot", torch.as_tensor(
+            exact_zero_pivot_panel(n, n)[None], dtype=dtype))]
+        for v in (float("nan"), float("inf")):
+            A = rand_sym(gen, 6, n, dtype, "cpu")
+            A[2, n // 2, 1] = v                     # below the diagonal
+            A[4, 0, 0] = v                          # the first pivot
+            cases.append((str(v), A))
+        for what, A in cases:
+            A = A.to(device)
+            L, d = sl.ldlt_factor_small(A)
+            Lr, dr = sl.ldlt_factor_small_ref(A)
+            torch.cuda.synchronize()
+            if not (same_bits(L, Lr) and same_bits(d, dr)):
+                raise AssertionError(f"ldlt_factor_small n={n} {dtype} "
+                                     f"{what}: differs from its plain "
+                                     f"version")
+            if what != "zero pivot" and bool(torch.isfinite(d).all()):
+                raise AssertionError(f"ldlt_factor_small n={n} {dtype} "
+                                     f"{what}: the pivots stayed finite")
+    print(f"  ok ldlt_factor_small {str(dtype):14s} n={SPECIAL_SIZES}: exact "
+          f"zero pivots, NaN and Inf below the diagonal and at the first "
+          f"pivot, bitwise equal to the plain version", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -1062,6 +1117,24 @@ def rescue_phase(problem, cfg, x0, data, counters, sl, ll, _sync, niter,
     return out
 
 
+def qp_fleet(cfg, device):
+    """Phase 4's fleet: (problem, data on the card, x0), after a warm-up
+    solve from 0."""
+    from pyipm_tpu_torch import solve_batch
+    from pyipm_tpu_torch.models.random_nlp import (
+        make_qp_problem, sample_qp_batch,
+    )
+    problem = make_qp_problem(D, NLIN)
+    data = sample_qp_batch(SEED, B, D, NLIN, dtype="float32", device=device)
+    solve_batch(problem, torch.zeros((B, D), device=device), cfg,
+                params=data)                                     # warm-up
+    rng = np.random.default_rng(7)
+    x0 = torch.as_tensor(1e-6 * rng.standard_normal((B, D)),
+                         dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    return problem, data, x0
+
+
 def mixed_buckets(device):
     """Phase 16's buckets: name -> (problem, data batched on the card,
     x0 (B, D))."""
@@ -1149,6 +1222,8 @@ def mixed_fleet_phase(cfg, device, counters, sl, ll, _sync):
                                                   device=device), counters)
         res = stack(results)
         alone[name] = res
+        dig = digests(res.signal, res.iter_count, res.x)
+        print(f"  {name} digests (sha256 of the bytes): {dig}", flush=True)
         sig, its = res.signal.cpu().numpy(), res.iter_count.cpu().numpy()
         conv = torch.as_tensor(np.isin(sig, (1, 2)), device=device)
         hit = float(conv.float().mean())
@@ -1159,7 +1234,7 @@ def mixed_fleet_phase(cfg, device, counters, sl, ll, _sync):
                    mean_iters=float(its.mean()), max_iters=int(its.max()),
                    signals={str(k): int(v) for k, v in
                             zip(*np.unique(sig, return_counts=True))},
-                   structure_worst=worst,
+                   structure_worst=worst, digests=dig,
                    **run_stats(wall, int(its.sum()), sl, ll, _sync))
         print(f"  {name} B={Bn} (D={prob.nvar}, M={prob.neq}, "
               f"N={prob.nineq}): hit rate {hit:.4f}, mean "
@@ -1212,6 +1287,12 @@ def mixed_fleet_phase(cfg, device, counters, sl, ll, _sync):
     total = int(sum(int(r.iter_count) for r in results))
     mixed = dict(instances=len(probs), total_iters=total,
                  **run_stats(wall, total, sl, ll, _sync))
+    mixed["digests"] = digests(
+        torch.stack([r.signal for r in results]),
+        torch.stack([r.iter_count for r in results]),
+        torch.cat([r.x.reshape(-1) for r in results]))
+    print(f"  all buckets digests (sha256 of the bytes): {mixed['digests']}",
+          flush=True)
     same = 0
     for (name, i), r in zip(owner, results):
         a = alone[name]
@@ -1885,8 +1966,7 @@ def main() -> int:
     from pyipm_tpu_torch import IPMConfig, _sync, solve, solve_batch
     from pyipm_tpu_torch.config import matmul_precision
     from pyipm_tpu_torch.models.random_nlp import (
-        make_dense_nlp_problem, make_qp_problem, sample_dense_nlp,
-        sample_qp_batch,
+        make_dense_nlp_problem, sample_dense_nlp,
     )
     from pyipm_tpu_torch.ops import _build, large_ldlt as ll, linalg as lin
     from pyipm_tpu_torch.ops import small_ldlt as sl
@@ -1919,14 +1999,7 @@ def main() -> int:
 
     phase("4 slice A: 10,000-QP float32 fleet on cuda:0")
     cfg = IPMConfig(float_dtype="float32", verbosity=0, Ktol=1e-4)
-    problem = make_qp_problem(D, NLIN)
-    data = sample_qp_batch(SEED, B, D, NLIN, dtype="float32", device=device)
-    solve_batch(problem, torch.zeros((B, D), device=device), cfg,
-                params=data)                                     # warm-up
-    rng = np.random.default_rng(7)
-    x0 = torch.as_tensor(1e-6 * rng.standard_normal((B, D)),
-                         dtype=torch.float32, device=device)
-    torch.cuda.synchronize()
+    problem, data, x0 = qp_fleet(cfg, device)
     reset(sl.LAUNCHES, sl.LAUNCHES_BY_N, ll.LAUNCHES, _sync.COUNTS)
     t0 = time.perf_counter()
     res = solve_batch(problem, x0, cfg, params=data)
@@ -1952,7 +2025,9 @@ def main() -> int:
     fleet = dict(hit_rate=hit, mean_iters=float(its.mean()),
                  max_iters=int(its.max()), wall_s=wall,
                  flat_steps=stats["flat_steps"],
-                 host_syncs=stats["host_syncs"], launches_by_n=launches_n)
+                 host_syncs=stats["host_syncs"], launches_by_n=launches_n,
+                 digests=digests(res.signal, res.iter_count, res.x))
+    print(f"  digests (sha256 of the bytes): {fleet['digests']}", flush=True)
     # phase 4's per-instance result, what phases 13-15 and 17 are held to
     lockstep = dict(fleet, sig=sig, its=its, x=res.x.cpu().numpy())
     if tuple(res.x.shape) != (B, D) or not bool(torch.isfinite(res.x).all()):
@@ -2203,7 +2278,16 @@ def main() -> int:
                 "library_ms": rec_["library_ms"], "shape": shape}
 
     t16 = times[16]
+    tw = times[WIDE_ROW_SHAPE[1]]
     small = "pyipm_tpu_torch/csrc/small_ldlt.cu"
+    # the wide branch's launches on phase 16's main path: the one call
+    # with every bucket
+    wide_launches = sum(
+        c for n, c in mixed["all_buckets"]["launches_by_n"].get(
+            "factor", {}).items() if int(n) > 64)
+    if wide_launches == 0:
+        raise AssertionError("the mixed fleet never launched kernel 1's "
+                             "wide branch")
     path_launches = {s: dense[s]["launches"] for s in dense}
     record = {"kernels": [
         row("ldlt_factor_small", "pyipm_tpu/ops/pallas_ldlt.py:49", small,
@@ -2218,6 +2302,12 @@ def main() -> int:
                  device_ms=t16["solve_device"], plain_ms=t16["solve_plain"],
                  bound=t16["solve_bound"],
                  library_ms=t16["solve_library"]), [B, 16]),
+        row("ldlt_factor_small_wide", "pyipm_tpu/ops/pallas_ldlt.py:49",
+            small, wide_launches,
+            dict(max_abs_err=err["factor_wide"], ms=tw["factor"],
+                 device_ms=tw["factor_device"], plain_ms=tw["factor_plain"],
+                 bound=tw["factor_bound"], library_ms=None),
+            list(WIDE_ROW_SHAPE)),
         row("panel_ldlt", "pyipm_tpu/ops/pallas_ldlt.py:198",
             "pyipm_tpu_torch/csrc/panel_ldlt.cu",
             sum(p["panel_ldlt"] for p in path_launches.values()),

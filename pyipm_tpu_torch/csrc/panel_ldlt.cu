@@ -54,6 +54,8 @@
 
 #include <atomic>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kPanelThreads = 512;
@@ -111,39 +113,6 @@ __device__ __forceinline__ void update_step(T (&a)[kRowSlots][kColSlots],
 #pragma unroll
   for (int b = b0 + 1; b < kColSlots; ++b)
     update_column(a, b, s0, v[warp + kWarps * b], ls);
-}
-
-// The ring's barriers: one per buffer, completed by the 32 lanes of the
-// warp that writes the buffer's vectors (release), waited on by every
-// warp before it reads them (acquire).
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  unsigned long long state;
-  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];"
-               : "=l"(state)
-               : "r"((unsigned)__cvta_generic_to_shared(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(bar);
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
 }
 
 // Pivot column c, held in column slot b and with its diagonal in row slot

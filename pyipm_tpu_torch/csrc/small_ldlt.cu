@@ -17,7 +17,12 @@
 // way is the chain of dependent steps inside each instance: n column steps
 // of the factorization (each needs the previous step's trailing update),
 // 2n substitution steps of the solve.  Both answer it the same way: no
-// CTA-wide barrier and no global access inside the chain.
+// CTA-wide barrier and no global access inside the chain.  The factor's
+// wide branch (64 < n <= 128) is bound by issue as much as by bytes: each
+// trailing update is three rounded operations (no FMA, for the bitwise
+// equality below), n^3 / 2 instructions an instance, 0.54 G at
+// (512, 128), about 16 us at the card's non-FMA rate against 15 us for
+// the bytes.
 //
 // Staging (copy_run, shared by both kernels).  A CTA's instances are
 // consecutive, so their matrices are one contiguous run of global memory.
@@ -27,7 +32,9 @@
 // first instance lies (a batch slice, or any CTA at odd n), so a scalar
 // head brings it to the next 16-byte boundary and a scalar tail ends it.
 // The factorization writes L (unit diagonal and zeros included) and d back
-// the same way.
+// the same way.  The wide kernel stages one instance into a packed lower
+// triangle instead (row r at r (r + 1) / 2; the upper entries are
+// dropped), which its pivots then fill with L.
 //
 // The factorization at n <= 64: one warp per instance (two, in half-warps,
 // at n <= 16).  Lane l owns rows l and l + 32 (above n = 32) of the lower
@@ -45,10 +52,30 @@
 // its own entries (i, c), j < c < n.  A warp does ~n^2/2 updates per
 // instance, the longest row each step.
 //
-// Above n = 64 (no path of the solver reaches it) the rows would not fit
-// in registers: the CTA scheme is kept there, one 128-thread CTA per
-// instance with the matrix in shared memory, thread i owning row i, and two
-// CTA barriers per column step (the scaled column, then the update).
+// The factorization at 64 < n <= 128 (ldlt_factor_kernel_wide).  Every
+// application family of the fleet reaches it each iteration: portfolios of
+// 64 assets (n = 65), maximum entropy over 64 states (67, and 67 for the
+// SOC normal matrices), SVM duals of 96 points (97), MPC's SOC normal
+// matrices (80), 2,048 instances a bucket; so do the condensed KKT solve,
+// batched_reg_factor's Schur blocks, lstsq_minnorm's normal matrices and
+// the L-BFGS rcond test at those sizes (ops/linalg.py, core/lbfgs.py).
+// One instance's rows no longer fit one warp's registers, so a CTA of W
+// warps (4 in f32, 8 in f64) runs it: the lower triangle in registers,
+// spread cyclically by column over the warps (warp w holds columns
+// w + W b) and by row over the lanes (rows l + 32 s), as kernel 3
+// (panel_ldlt.cu) spreads its panel, so each step's shrinking trailing
+// update is shared evenly; a template on the size bucket (96, 128).  The
+// owner of column j + 1 applies step j to it, pivots and publishes it
+// through a ring of shared buffers guarded by mbarriers before it updates
+// its other columns: no CTA barrier in the column loop.  Many instances
+// stay resident: 4 CTAs (16 warps) an SM in f32 at N = 128, in at most 128
+// registers a thread.  It replaces an earlier CTA scheme (thread i owning
+// row i in shared memory, two CTA barriers a step, the longest row on one
+// thread): 0.090 against 0.523 ms at (512, 128) in f32 on an NVIDIA H100
+// 80GB HBM3 at 700 W (scripts/time_small_ldlt.py), 6x the bytes' bound.
+// A look-ahead that deferred the next owner's other columns until after
+// its pivot measured slower there (more code, 128 registers): the kernel
+// is held by issue more than by the chain.
 //
 // The solve: a warp runs one instance (two at n <= 16, in half-warps)
 // column-oriented: lane i owns entry i of the running vector (entries i,
@@ -79,6 +106,8 @@
 #include <atomic>
 #include <cstdint>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -97,14 +126,43 @@ template <typename T> struct Word16;
 template <> struct Word16<float> { using type = float4; };
 template <> struct Word16<double> { using type = double2; };
 
+// copy_run's views of a shared tile, entry (r, c): a tile of row stride ld
+// at sm[r * ld + c]; and the packed lower triangle of the wide kernel, row
+// r at tri[r (r + 1) / 2], which keeps only the entries c <= r of what is
+// put and gives back L (its strict lower part, 1 on the diagonal, 0 above).
+template <typename T>
+struct StridedTile {
+  T* sm;
+  int ld;
+  __device__ __forceinline__ void put(int r, int c, T v) const {
+    sm[r * ld + c] = v;
+  }
+  __device__ __forceinline__ T get(int r, int c) const {
+    return sm[r * ld + c];
+  }
+};
+
+__device__ __forceinline__ int tri_row(int r) { return r * (r + 1) / 2; }
+
+template <typename T>
+struct LowerTile {
+  T* tri;
+  __device__ __forceinline__ void put(int r, int c, T v) const {
+    if (c <= r) tri[tri_row(r) + c] = v;
+  }
+  __device__ __forceinline__ T get(int r, int c) const {
+    return c < r ? tri[tri_row(r) + c] : T(c == r);
+  }
+};
+
 // Copy `total` consecutive entries of global memory at g, rows of `cols`
-// entries, to (kLoad) or from shared memory rows of stride `ld`: entry e is
-// (row e / cols, column e % cols).  All threads of the CTA take part; a
-// scalar head up to g's next 16-byte boundary, 16-byte words, a scalar
-// tail.  The caller orders it with __syncthreads.
-template <bool kLoad, typename T>
-__device__ __forceinline__ void copy_run(T* g, T* sm, int total, int cols,
-                                         int ld) {
+// entries, to (kLoad) or from the shared tile: entry e is (row e / cols,
+// column e % cols).  All threads of the CTA take part; a scalar head up to
+// g's next 16-byte boundary, 16-byte words, a scalar tail.  The caller
+// orders it with __syncthreads.
+template <bool kLoad, typename T, typename Tile>
+__device__ __forceinline__ void copy_run(T* g, Tile tile, int total,
+                                         int cols) {
   using Word = typename Word16<T>::type;
   constexpr int V = sizeof(Word) / sizeof(T);
   const int head = min(
@@ -133,8 +191,8 @@ __device__ __forceinline__ void copy_run(T* g, T* sm, int total, int cols,
       T* v = reinterpret_cast<T*>(&word[t]);
 #pragma unroll
       for (int u = 0; u < V; ++u) {
-        if (kLoad) sm[r * ld + c] = v[u];
-        else v[u] = sm[r * ld + c];
+        if (kLoad) tile.put(r, c, v[u]);
+        else v[u] = tile.get(r, c);
         if (++c == cols) { c = 0; ++r; }
       }
       if (!kLoad) words[q] = word[t];
@@ -145,10 +203,16 @@ __device__ __forceinline__ void copy_run(T* g, T* sm, int total, int cols,
   for (int s = threadIdx.x; s < total - body; s += blockDim.x) {
     const int e = s < head ? s : s + body;
     const int r = e / cols;
-    T* at = sm + r * ld + (e - r * cols);
-    if (kLoad) *at = __ldg(g + e);
-    else g[e] = *at;
+    const int c = e - r * cols;
+    if (kLoad) tile.put(r, c, __ldg(g + e));
+    else g[e] = tile.get(r, c);
   }
+}
+
+template <bool kLoad, typename T>
+__device__ __forceinline__ void copy_run(T* g, T* sm, int total, int cols,
+                                         int ld) {
+  copy_run<kLoad>(g, StridedTile<T>{sm, ld}, total, cols);
 }
 
 // A lane's row windows at step j: r0[k] and r1[k] hold entries (i0, j + k)
@@ -266,43 +330,192 @@ ldlt_factor_kernel(const T* __restrict__ A, T* __restrict__ L,
   copy_run<false>(d + first * n, dsm, count * n, n, n);
 }
 
-// The same factorization for 64 < n <= 128: one instance per 128-thread
-// CTA, the matrix in shared memory (stride n | 1), thread i owning row i,
-// two CTA barriers per column step.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ldlt_factor_kernel_cta(const T* __restrict__ A, T* __restrict__ L,
-                       T* __restrict__ d, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tile = reinterpret_cast<T*>(smem_raw);
-  const int ld = n | 1;
-  const long long nn = (long long)n * n;
-  T* dsm = tile + n * ld;
-  const long long inst = blockIdx.x;
-  copy_run<true>(const_cast<T*>(A) + inst * nn, tile, (int)nn, n, ld);
-  __syncthreads();
+// ---- the factorization at 64 < n <= 128: the wide kernel ----
+//
+// One CTA of W warps per instance (W = 4 in f32, 8 in f64), the lower
+// triangle in registers: warp w holds the columns w + W b, lane l the rows
+// l + 32 s (row slot s < S = N / 32), entry (l + 32 s, w + W b) in a[s][b],
+// only the column slots b < (32 / W)(s + 1) of row slot s that reach the
+// triangle.  The kernel is a template on the size bucket N (96, 128).
+//
+// A pass is the W steps that pivot column slot b0 of every warp.  The
+// register windows slide one column slot a pass: a[s][k] holds column slot
+// b0 + k, so the pivot column is always k = 0 and every register index is a
+// constant while the step loop stays a loop.  A phase is the 32 steps that
+// finish row slot p; the phases are unrolled (template P), so each phase's
+// code touches only row slots s >= P and its window bounds are constants.
+// A row slot's window shrinks one slot a pass; the tail it leaves (columns
+// past the slot's last row) gets harmless updates and is never read again.
+//
+// Iteration nx applies step nx - 1 and pivots column nx, owned by warp
+// nx % W (kernel 3's hand-off, panel_ldlt.cu): every warp waits on the
+// step's mbarrier and reads its row values l_r and d_j from the step's
+// buffer; the owner updates column nx first, broadcasts d_nx by shuffle,
+// divides its rows below the diagonal, writes the scaled column and d_nx to
+// the next buffer (l_r by row, zeros at and above the diagonal, d at
+// [N + 32]) and to the packed triangle in shared memory, arrives, and only
+// then updates its other columns.  No CTA barrier in the loop.  A ring of
+// 2W buffers suffices: a warp writes step m only after waiting for step
+// m - 1, so after steps j + 2 .. j + W + 1 (one per warp) every warp has
+// read step j, and step j + 2W is written after those.  The column values
+// l_c are broadcast loads of buffer entries w + W (b0 + k); in a window's
+// dead tail they read up to entry N + 31 - W, so a buffer has N + 32
+// entries before d (zeroed once; never written there).
+template <int W, int N>
+struct Wide {
+  static constexpr int kS = N / kWarp;       // row slots of a lane
+  static constexpr int kC = N / W;           // column slots of a warp
+  static constexpr int kPasses = kWarp / W;  // passes a phase
+  static constexpr int kRing = 2 * W;        // step buffers
+  static constexpr int kDj = N + kWarp;      // d_j's place in a buffer
+  static constexpr int kBuf = kDj + 4;       // a buffer's entries
+};
 
-  const int i = threadIdx.x;
-  const bool own = i < n;
-  T* row = tile + i * ld;
-  for (int j = 0; j < n - 1; ++j) {
-    const T dj = tile[j * ld + j];
-    const T safe = (fabs(dj) > T(0)) ? dj : T(1);
-    if (own && i > j) row[j] = div_rn(row[j], safe);
-    __syncthreads();
-    if (own && i > j) {
-      const T li = row[j];
-      for (int c = j + 1; c <= i; ++c)
-        row[c] = sub_rn(row[c], mul_rn(mul_rn(li, tile[c * ld + j]), dj));
+// the trailing update of one entry: a - (l_r * l_c) * d_j, rounded in
+// that order
+template <typename T>
+__device__ __forceinline__ T ldl_update(T a, T lr, T lc, T dj) {
+  return sub_rn(a, mul_rn(mul_rn(lr, lc), dj));
+}
+
+// Step j's update (row values ls, pivot dj, buffer cur) of this warp's
+// window in phase P: column slot k at column col0 + W k.  Slot 0 only where
+// `with0` (a warp past the pivot's owner).  kShift, the pass's last step:
+// the result of slot k goes to k - 1 (slot 0 is finished in every warp).
+template <typename T, int W, int N, int P, bool kShift>
+__device__ __forceinline__ void wide_update(
+    T (&a)[Wide<W, N>::kS][Wide<W, N>::kC], const T (&ls)[Wide<W, N>::kS],
+    T dj, const T* cur, int col0, bool with0) {
+  using G = Wide<W, N>;
+  if (!kShift && with0) {
+    const T lc = cur[col0];
+#pragma unroll
+    for (int s = P; s < G::kS; ++s)
+      a[s][0] = ldl_update(a[s][0], ls[s], lc, dj);
+  }
+#pragma unroll
+  for (int k = 1; k < G::kPasses * (G::kS - P); ++k) {
+    const T lc = cur[col0 + W * k];
+#pragma unroll
+    for (int s = P; s < G::kS; ++s)
+      if (k < G::kPasses * (s - P + 1))
+        a[s][k - kShift] = ldl_update(a[s][k], ls[s], lc, dj);
+  }
+}
+
+// Phase P: iterations nx = 32 P .. min(32 P + 32, n) - 1, then the next
+// phase.
+template <typename T, int W, int N, int P>
+__device__ __forceinline__ void wide_phase(
+    T (&a)[Wide<W, N>::kS][Wide<W, N>::kC], unsigned long long* bars,
+    T* ring, T* tri, T* dsm, int n, int warp, int lane) {
+  using G = Wide<W, N>;
+  const int end = min(kWarp * (P + 1), n);
+#pragma unroll 1
+  for (int nx = kWarp * P; nx < end; ++nx) {
+    const int w0 = nx % W;
+    const int col0 = warp + W * (nx / W);
+    T ls[G::kS];
+    T dj = T(0);
+    const T* cur = ring;
+    if (nx > 0) {
+      const int j = nx - 1;
+      cur = ring + (j % G::kRing) * G::kBuf;
+      mbar_wait(bars + j % G::kRing, (j / G::kRing) & 1);
+#pragma unroll
+      for (int s = P; s < G::kS; ++s) ls[s] = cur[lane + kWarp * s];
+      dj = cur[G::kDj];
+      if (warp == w0) {
+        const T lc = cur[nx];
+#pragma unroll
+        for (int s = P; s < G::kS; ++s)
+          a[s][0] = ldl_update(a[s][0], ls[s], lc, dj);
+      }
     }
-    __syncthreads();
+    if (warp == w0) {
+      // the pivot: entry (nx, nx), row slot P, column slot 0, lane nx % 32
+      const T dn = __shfl_sync(kFull, a[P][0], nx % kWarp);
+      const T safe = (fabs(dn) > T(0)) ? dn : T(1);
+      T* nxt = ring + (nx % G::kRing) * G::kBuf;
+#pragma unroll
+      for (int s = P; s < G::kS; ++s) {
+        const int r = lane + kWarp * s;
+        const bool below = r > nx && r < n;
+        // only live rows divide: a finished row's leftovers might take
+        // the division's slow path for the whole warp
+        const T q = div_rn(below ? a[s][0] : safe, safe);
+        nxt[r] = below ? q : T(0);
+        if (below) tri[tri_row(r) + nx] = q;
+      }
+      if (lane == 0) {
+        nxt[G::kDj] = dn;
+        dsm[nx] = dn;
+      }
+      mbar_arrive(bars + nx % G::kRing);
+    }
+    if (nx > 0) {
+      if (w0 == W - 1)
+        wide_update<T, W, N, P, true>(a, ls, dj, cur, col0, false);
+      else
+        wide_update<T, W, N, P, false>(a, ls, dj, cur, col0, warp > w0);
+    }
   }
-  if (own) {
-    dsm[i] = row[i];
-    for (int c = i; c < n; ++c) row[c] = T(c == i);
-  }
+  if constexpr (P + 1 < G::kS)
+    if (n > kWarp * (P + 1))
+      wide_phase<T, W, N, P + 1>(a, bars, ring, tri, dsm, n, warp, lane);
+}
+
+template <typename T> struct WideWarps;
+template <> struct WideWarps<float> { static constexpr int value = 4; };
+template <> struct WideWarps<double> { static constexpr int value = 8; };
+
+// Shared memory: the ring's barriers, the ring, the packed lower triangle
+// (A's lower triangle in, L's strict lower part out), d.
+template <typename T, int W, int N>
+constexpr size_t wide_smem(int n) {
+  return Wide<W, N>::kRing * sizeof(unsigned long long) +
+         ((size_t)Wide<W, N>::kRing * Wide<W, N>::kBuf +
+          (size_t)n * (n + 1) / 2 + n) * sizeof(T);
+}
+
+// LDL^T of one instance (blockIdx.x) at 64 < n <= N: A's lower triangle is
+// staged into the packed triangle (copy_run), each thread takes its entries,
+// the phases run, and L and d go out through copy_run.  At most 16 / W CTAs
+// an SM are asked for, so a thread keeps its window (80 f32 registers at
+// N = 128, W = 4) in at most 128 registers.
+template <typename T, int W, int N>
+__global__ void __launch_bounds__(W * kWarp, 16 / W)
+ldlt_factor_kernel_wide(const T* __restrict__ A, T* __restrict__ L,
+                        T* __restrict__ d, int n) {
+  using G = Wide<W, N>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto* bars = reinterpret_cast<unsigned long long*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(bars + G::kRing);
+  T* tri = ring + G::kRing * G::kBuf;
+  T* dsm = tri + n * (n + 1) / 2;
+  const long long nn = (long long)n * n;
+  const long long inst = blockIdx.x;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+
+  if (threadIdx.x < G::kRing) mbar_init(bars + threadIdx.x, kWarp);
+  for (int e = threadIdx.x; e < G::kRing * G::kBuf; e += blockDim.x)
+    ring[e] = T(0);
+  copy_run<true>(const_cast<T*>(A) + inst * nn, LowerTile<T>{tri}, (int)nn,
+                 n);
   __syncthreads();
-  copy_run<false>(L + inst * nn, tile, (int)nn, n, ld);
+  T a[G::kS][G::kC];
+#pragma unroll
+  for (int s = 0; s < G::kS; ++s)
+#pragma unroll
+    for (int k = 0; k < G::kPasses * (s + 1); ++k) {
+      const int r = lane + kWarp * s, c = warp + W * k;
+      a[s][k] = (r < n && c <= r) ? tri[tri_row(r) + c] : T(0);
+    }
+  __syncthreads();  // the pivots overwrite the triangle
+  wide_phase<T, W, N, 0>(a, bars, ring, tri, dsm, n, warp, lane);
+  __syncthreads();
+  copy_run<false>(L + inst * nn, LowerTile<T>{tri}, (int)nn, n);
   copy_run<false>(d + inst * n, dsm, n, n, n);
 }
 
@@ -452,6 +665,20 @@ int launch_factor_as(const T* A, T* L, T* d, int B, int n,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int W, int N>
+int launch_factor_wide(const T* A, T* L, T* d, int B, int n,
+                       cudaStream_t stream) {
+  if (wide_smem<T, W, N>(N) > kOptInAbove) {
+    static std::atomic<bool> done[kMaxDevices];
+    cudaError_t err = opt_in_smem(ldlt_factor_kernel_wide<T, W, N>, done,
+                                  wide_smem<T, W, N>(N));
+    if (err != cudaSuccess) return (int)err;
+  }
+  ldlt_factor_kernel_wide<T, W, N><<<B, W * kWarp, wide_smem<T, W, N>(n),
+                                     stream>>>(A, L, d, n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_factor(const void* A_, void* L_, void* d_, int B, int n,
                   void* stream_) {
@@ -464,16 +691,11 @@ int launch_factor(const void* A_, void* L_, void* d_, int B, int n,
   if (n <= 32) return launch_factor_as<T, 32, 32>(A, L, d, B, n, stream);
   if (n <= 48) return launch_factor_as<T, 32, 48>(A, L, d, B, n, stream);
   if (n <= 64) return launch_factor_as<T, 32, 64>(A, L, d, B, n, stream);
-  const size_t smem = ((size_t)n * (n | 1) + n) * sizeof(T);
-  if (smem > kOptInAbove) {
-    static std::atomic<bool> done[kMaxDevices];
-    cudaError_t err = opt_in_smem(
-        ldlt_factor_kernel_cta<T>, done,
-        ((size_t)kMaxN * (kMaxN | 1) + kMaxN) * sizeof(T));
-    if (err != cudaSuccess) return (int)err;
-  }
-  ldlt_factor_kernel_cta<T><<<B, kThreads, smem, stream>>>(A, L, d, n);
-  return (int)cudaGetLastError();
+  if (n <= 96)
+    return launch_factor_wide<T, WideWarps<T>::value, 96>(A, L, d, B, n,
+                                                          stream);
+  return launch_factor_wide<T, WideWarps<T>::value, 128>(A, L, d, B, n,
+                                                         stream);
 }
 
 template <typename T, int NT, int W>

@@ -5,6 +5,11 @@ Counterpart of ``ldlt_factor_small`` / ``ldlt_solve_small`` in
 ``pyipm_tpu/ops/pallas_ldlt.py`` (the Pallas ``_factor_kernel`` and
 ``_solve_kernel``), batch first: A is (B, n, n), row-major, n <= 128.
 
+The factor kernel has two designs by size: a warp per instance up to n =
+64, and above it (the application fleets' n = 65 to 97, the Schur blocks,
+the normal matrices up to 128) a CTA of warps per instance with the lower
+triangle in registers; both are bitwise equal to the plain version.
+
 The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
 counts kernel launches per kernel, and ``LAUNCHES_BY_N`` the same launches

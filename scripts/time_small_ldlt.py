@@ -5,9 +5,10 @@
 Imports ``pyipm_tpu_torch`` from ``--root`` (default: this checkout), so
 that two trees, say a parent unpacked with ``git archive`` and this one, are
 timed in one call by the same code: ``chip_smoke.factor_timings`` at each
-f32 shape of ``chip_smoke.TIMED_SHAPES`` and ``FACTOR_ONLY_SHAPE``
-((10000, 16), (10000, 36), (512, 128)), on inputs drawn from its
-``SEED``.  Prints the card's name and power limit first.
+f32 shape of ``chip_smoke.TIMED_SHAPES``, ``FACTOR_ONLY_SHAPE`` and
+``WIDE_SHAPES`` ((10000, 16), (10000, 36), (512, 128), and phase 16's
+(2048, n) at n = 65, 67, 80, 96, 97), on inputs drawn from its ``SEED``.
+Prints the card's name and power limit first.
 Needs one CUDA card.
 """
 
@@ -22,7 +23,8 @@ sys.path.insert(0, HERE)
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    FACTOR_ONLY_SHAPE, SEED, TIMED_SHAPES, factor_timings, rand_sym,
+    FACTOR_ONLY_SHAPE, SEED, TIMED_SHAPES, WIDE_SHAPES, factor_timings,
+    rand_sym,
 )
 
 
@@ -41,7 +43,7 @@ def main():
     print(f"card: {smi}; package {os.path.dirname(sl.__file__)}", flush=True)
     dev = torch.device("cuda:0")
     gen = torch.Generator().manual_seed(SEED)
-    for Bn, n in TIMED_SHAPES + (FACTOR_ONLY_SHAPE,):
+    for Bn, n in TIMED_SHAPES + (FACTOR_ONLY_SHAPE,) + WIDE_SHAPES:
         A = rand_sym(gen, Bn, n, torch.float32, dev)
         t = factor_timings(sl, A, plain_reps=3)
         dms, how, per_call = t["factor_device"]

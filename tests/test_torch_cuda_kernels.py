@@ -156,8 +156,8 @@ def _same_bits(a, b):
             and torch.equal(a.view(it)[~na], b.view(it)[~nb]))
 
 
-FACTOR_SIZES = [1, 2, 15, 16, 17, 31, 32, 33, 36, 48, 49, 63, 64, 65, 69, 95,
-                97, 127, 128]
+FACTOR_SIZES = [1, 2, 15, 16, 17, 31, 32, 33, 36, 48, 49, 63, 64, 65, 69, 80,
+                95, 96, 97, 127, 128]
 
 
 @pytest.mark.cuda
@@ -165,8 +165,9 @@ FACTOR_SIZES = [1, 2, 15, 16, 17, 31, 32, 33, 36, 48, 49, 63, 64, 65, 69, 95,
 @pytest.mark.parametrize("n", FACTOR_SIZES)
 def test_factor_kernel_sizes_repeatable(card, n, dtype):
     """Every size bucket of the factor kernel (half-warps to n = 16, a warp
-    to 32, 48 and 64, a lane holding one or two rows, the CTA scheme above)
-    and their edges, at a batch that fills no CTA evenly, half the instances
+    to 32, 48 and 64, a lane holding one or two rows; above, the wide
+    branch's buckets 96 and 128, a CTA of warps per instance) and their
+    edges, at a batch that fills no CTA evenly, half the instances
     indefinite: bitwise the plain version, bitwise repeatable over 20
     calls, one counted launch per call."""
     rng = np.random.default_rng(1000 + n)
@@ -187,14 +188,39 @@ def test_factor_kernel_sizes_repeatable(card, n, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("n", [5, 69, 127])
+@pytest.mark.parametrize("n", [65, 97, 128])
+def test_factor_kernel_wide_many_waves(card, n, dtype):
+    """The wide branch at B = 2,048, phase 16's bucket batch: more CTAs
+    than stay resident at once (several waves), half the instances
+    indefinite; bitwise the plain version, one counted launch."""
+    rng = np.random.default_rng(2000 + n)
+    A = _rand_sym(rng, 2048, n)
+    A[::2] -= (n / 2) * np.eye(n)
+    A = torch.as_tensor(A, dtype=getattr(torch, dtype), device=card)
+    n0 = sl.LAUNCHES["factor"]
+    L, d = sl.ldlt_factor_small(A)
+    Lr, dr = sl.ldlt_factor_small_ref(A)
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES["factor"] == n0 + 1
+    assert _same_bits(L, Lr) and _same_bits(d, dr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [5, 65, 69, 97, 127, 128])
 def test_factor_kernel_unaligned_slice(card, n, dtype):
     """A batch slice A[1:] starts off a 16-byte boundary: staged from a
     scalar head, then 16-byte words; the same bits as its contiguous
-    copy and as the plain version."""
+    copy and as the plain version.  Where an instance fills whole 16-byte
+    words (n = 128) the batch starts one entry into its storage, so that
+    the slice still starts off the boundary."""
     rng = np.random.default_rng(n)
-    A = torch.as_tensor(_rand_sym(rng, 41, n), dtype=getattr(torch, dtype),
-                        device=card)
+    dt = getattr(torch, dtype)
+    A0 = torch.as_tensor(_rand_sym(rng, 41, n), dtype=dt, device=card)
+    off = int(n * n * A0.element_size() % 16 == 0)
+    A = torch.empty(A0.numel() + off, dtype=dt, device=card)[off:]
+    A = A.view(41, n, n)
+    A.copy_(A0)
     assert A[1:].data_ptr() % 16 and A[1:].is_contiguous()
     L, d = sl.ldlt_factor_small(A[1:])
     L2, d2 = sl.ldlt_factor_small(A[1:].clone())
@@ -216,11 +242,11 @@ def test_factor_kernel_special_values(card, kind, dtype):
                             [2.0, 3.0, 1.0]],
                            [[4.0, 2.0, 0.0], [2.0, 1.0, 5.0],
                             [0.0, 5.0, 2.0]]])]
-        cases += [_zero_pivot_panel(n)[None] for n in (16, 36, 100)]
+        cases += [_zero_pivot_panel(n)[None] for n in (16, 36, 65, 100, 128)]
     else:
         bad = float("nan") if kind == "nan" else float("inf")
         cases = []
-        for n in (5, 16, 36, 64, 100):
+        for n in (5, 16, 36, 64, 65, 100, 128):
             A = _rand_sym(np.random.default_rng(n), 6, n)
             A[2, n // 2, min(1, n - 1)] = bad       # below the diagonal
             A[4, 0, 0] = bad                        # the first pivot

@@ -29,7 +29,9 @@ def _rand_sym(rng, B, n):
     return (A + np.swapaxes(A, 1, 2)) / 2 + np.eye(n) * (n / 4)
 
 
-@pytest.mark.parametrize("B,n", [(128, 16), (130, 36), (128, 48)])
+# the CUDA factor's warp scheme (n <= 64) and its wide branch (64 < n <= 128)
+@pytest.mark.parametrize("B,n", [(128, 16), (130, 36), (128, 48), (128, 65),
+                                 (130, 97), (128, 128)])
 def test_plain_factor_matches_pallas_kernel(rng, B, n):
     A = _rand_sym(rng, B, n).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
@@ -190,7 +192,8 @@ def test_zero_pivot_guard_matches_jax():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("B,n", [(130, 16), (130, 36)])
+@pytest.mark.parametrize("B,n", [(130, 16), (130, 36), (128, 65), (130, 97),
+                                 (128, 128)])
 def test_non_finite_instances_match_pallas_kernel(rng, B, n):
     """A batch in which a few instances hold a NaN or an Inf: the plain
     factor and the Pallas kernel (interpret mode) give a non-finite pivot
