@@ -1,13 +1,18 @@
-"""Time the batched small LDL^T factor (kernel 1) of one checkout on the card.
+"""Time the batched small LDL^T factor (kernel 1) and solve (kernel 2) of
+one checkout on the card.
 
-    python scripts/time_small_ldlt.py [--root DIR]
+    python scripts/time_small_ldlt.py [--root DIR] [--no-solve]
 
 Imports ``pyipm_tpu_torch`` from ``--root`` (default: this checkout), so
 that two trees, say a parent unpacked with ``git archive`` and this one, are
 timed in one call by the same code: ``chip_smoke.factor_timings`` at each
 f32 shape of ``chip_smoke.TIMED_SHAPES``, ``FACTOR_ONLY_SHAPE`` and
 ``WIDE_SHAPES`` ((10000, 16), (10000, 36), (512, 128), and phase 16's
-(2048, n) at n = 65, 67, 80, 96, 97), on inputs drawn from its ``SEED``.
+(2048, n) at n = 65, 67, 80, 96, 97), and the f64 factor at (512, 128), on
+inputs drawn from its ``SEED``; then (unless ``--no-solve``) the solve at
+phase 16's (2048, n) for n = 40, 65, 67, 80, 97: ms per call, device ms
+per launch, the plain version, ``torch.linalg.ldl_solve`` with identity
+pivots (one call after a warm-up) and ``chip_smoke.solve_bound``.
 Prints the card's name and power limit first.
 Needs one CUDA card.
 """
@@ -23,14 +28,50 @@ sys.path.insert(0, HERE)
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    FACTOR_ONLY_SHAPE, SEED, TIMED_SHAPES, WIDE_SHAPES, factor_timings,
-    rand_sym,
+    F64_FLOPS, FACTOR_ONLY_SHAPE, PATH_B, REPS, SEED, TIMED_SHAPES,
+    WIDE_SHAPES, bound, cuda_ms, device_ms, factor_timings, library_ms,
+    rand_sym, solve_bound,
 )
+
+# the sizes phase 16 launches kernel 2 at with no other timed row
+SOLVE_PATH_SHAPES = tuple((PATH_B, n) for n in (40, 65, 67, 80, 97))
+
+
+def report_factor(what, Bn, n, t, b_ms, b_by):
+    dms, how, per_call = t["factor_device"]
+    print(f"factor {what} B={Bn} n={n}: {t['factor']:.4f} ms per call, "
+          f"device {dms:.4f} ms per launch ({how}, {per_call} launches "
+          f"per call seen), the wrapper at B=1 {t['factor_floor']:.4f} "
+          f"ms, plain {t['factor_plain']:.4f} ms, bound {b_ms:.5f} ms by "
+          f"{b_by}, device/bound {dms / b_ms:.2f}", flush=True)
+
+
+def solve_timings(sl, gen, dev):
+    for Bn, n in SOLVE_PATH_SHAPES:
+        A = rand_sym(gen, Bn, n, torch.float32, dev)
+        b = torch.randn(Bn, n, generator=gen).to(dev)
+        L, d = sl.ldlt_factor_small(A)
+        LD = torch.tril(L, -1) + torch.diag_embed(d)
+        piv = torch.arange(1, n + 1, dtype=torch.int32,
+                           device=dev).expand(Bn, n).contiguous()
+        lib, _ = library_ms(lambda: torch.linalg.ldl_solve(
+            LD, piv, b[..., None]), "torch.linalg.ldl_solve")
+        ms = cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), REPS)
+        dms, how, per_call = device_ms(lambda: sl.ldlt_solve_small(L, d, b),
+                                       ("ldlt_solve_kernel",))
+        plain = cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 3)
+        b_ms, b_by = solve_bound(Bn, n)
+        print(f"solve f32 B={Bn} n={n}: {ms:.4f} ms per call, device "
+              f"{dms:.4f} ms per launch ({how}, {per_call} launches per "
+              f"call seen), plain {plain:.4f} ms, ldl_solve {lib} ms, bound "
+              f"{b_ms:.5f} ms by {b_by}, device/bound {dms / b_ms:.2f}",
+              flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
+    ap.add_argument("--no-solve", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_small_ldlt: needs a CUDA card", file=sys.stderr)
@@ -46,13 +87,16 @@ def main():
     for Bn, n in TIMED_SHAPES + (FACTOR_ONLY_SHAPE,) + WIDE_SHAPES:
         A = rand_sym(gen, Bn, n, torch.float32, dev)
         t = factor_timings(sl, A, plain_reps=3)
-        dms, how, per_call = t["factor_device"]
-        b_ms, b_by = t["factor_bound"]
-        print(f"factor f32 B={Bn} n={n}: {t['factor']:.4f} ms per call, "
-              f"device {dms:.4f} ms per launch ({how}, {per_call} launches "
-              f"per call seen), the wrapper at B=1 {t['factor_floor']:.4f} "
-              f"ms, plain {t['factor_plain']:.4f} ms, bound {b_ms:.5f} ms by "
-              f"{b_by}, device/bound {dms / b_ms:.2f}", flush=True)
+        report_factor("f32", Bn, n, t, *t["factor_bound"])
+    # the f64 wide branch (8 warps an instance): bytes of 8, the f64 peak
+    Bn, n = FACTOR_ONLY_SHAPE
+    t = factor_timings(sl, rand_sym(gen, Bn, n, torch.float64, dev),
+                       plain_reps=3)
+    words = n * (n + 1) // 2 + n * n + n
+    report_factor("f64", Bn, n, t, *bound(Bn * words * 8,
+                                          Bn * 2 * n ** 3 / 3, F64_FLOPS))
+    if not args.no_solve:
+        solve_timings(sl, gen, dev)
     return 0
 
 
