@@ -59,8 +59,8 @@ Phases, each raising on failure:
      each bucket held instance by instance to the same ``solve_fleet``
      call on the CPU: signals equal (but on the instances of
      CLASSIFIED_SIGNAL_SPLITS), x within CARD_CPU_XTOL (1 + |x|) where
-     both converged (but on CLASSIFIED_X_SPLITS), iteration counts
-     recorded;
+     both converged (STOP_APART_XTOL where the two stop at different
+     iteration counts), iteration counts recorded;
  17. ``profile_solve`` of phase 13's wave fleet, ``trace()`` around a
      fleet solve with all six phase scopes in the trace, ``trace_metrics``
      on the fleet (unchanged to the bit, its history's bytes, instance 0's
@@ -206,13 +206,13 @@ CARD_CPU_XTOL = dict(portfolio=2e-3, svm=2e-3, maxent=2e-3, mpc=1e-2,
 # residual comes out exactly 0 and the merit penalty's update divides by
 # the tiny guard alone (nu ~ 1e31)
 CLASSIFIED_SIGNAL_SPLITS = {"maxent": (1415,)}
-# instances whose card and CPU x may differ beyond CARD_CPU_XTOL where both
-# converged, each classified in ROADMAP Queue 3 (bucket -> indices): each
-# stops one iteration apart on the two devices (a float32 Ktol test), and
-# that last step moves x by 2.7e-3 to 3.3e-3, inside the float32
-# solution's own distance to the float64 one at Ktol (median 3.5e-3 over
-# the portfolio bucket, 2.0e-3 over the SVM bucket, on the CPU)
-CLASSIFIED_X_SPLITS = {"portfolio": (100, 407), "svm": (524,)}
+# where the card and the CPU both converge but stop at different iteration
+# counts (the float32 Ktol test passes at another iterate on each device), x
+# is held to the float32 solution's own accuracy at Ktol instead: the float32
+# and float64 solutions differ by a median of 3.5e-3 (1 + |x|) over the
+# portfolio bucket on the CPU (ROADMAP Queue 3).  The MPC bucket's bound
+# everywhere.
+STOP_APART_XTOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
@@ -1222,9 +1222,9 @@ def structure_ok(name, x, data, fval, prob):
 def card_against_cpu(name, res, ref, cpu_wall):
     """Hold a bucket's card results to the CPU path's, instance by
     instance: signals equal except on CLASSIFIED_SIGNAL_SPLITS, x within
-    CARD_CPU_XTOL (1 + |x|) where both converged except on
-    CLASSIFIED_X_SPLITS; iteration counts and objective values are
-    recorded, not held."""
+    CARD_CPU_XTOL (1 + |x|) where both converged, or within
+    STOP_APART_XTOL where they converged at different iteration counts;
+    iteration counts and objective values are recorded, not held."""
     sg, sc = res.signal.cpu().numpy(), ref.signal.numpy()
     ig, ic = res.iter_count.cpu().numpy(), ref.iter_count.numpy()
     both = np.isin(sg, (1, 2)) & np.isin(sc, (1, 2))
@@ -1232,13 +1232,20 @@ def card_against_cpu(name, res, ref, cpu_wall):
     fg, fc = res.fval.cpu().numpy(), ref.fval.numpy()
     dx = (np.abs(xg - xc) / (1.0 + np.abs(xc))).max(-1)
     df = np.abs(fg - fc) / (1.0 + np.abs(fc))
+    apart = both & (ig != ic)
+    tol = np.where(apart, max(CARD_CPU_XTOL[name], STOP_APART_XTOL),
+                   CARD_CPU_XTOL[name])
     sig_diff = np.flatnonzero(sg != sc).tolist()
     its_diff = np.flatnonzero(ig != ic).tolist()
-    beyond = np.flatnonzero(both & (dx > CARD_CPU_XTOL[name])).tolist()
+    beyond = np.flatnonzero(both & (dx > tol)).tolist()
+    wide = np.flatnonzero(apart & (dx > CARD_CPU_XTOL[name])).tolist()
     out = dict(signals_equal=int(np.sum(sg == sc)), signals_differ=sig_diff,
                iters_equal=int(np.sum(ig == ic)), iters_differ=its_diff[:20],
                max_rel_dx=float(dx[both].max()) if both.any() else 0.0,
                max_rel_df=float(df[both].max()) if both.any() else 0.0,
+               stop_apart=int(apart.sum()),
+               stop_apart_beyond_xtol={i: (float(dx[i]), int(ig[i]),
+                                           int(ic[i])) for i in wide},
                x_beyond={i: float(dx[i]) for i in beyond},
                cpu_signals={str(k): int(v) for k, v in
                             zip(*np.unique(sc, return_counts=True))},
@@ -1248,20 +1255,52 @@ def card_against_cpu(name, res, ref, cpu_wall):
           f"{sg.size}, differ at {sig_diff}; iterations equal "
           f"{out['iters_equal']}/{sg.size}, differ first at {its_diff[:20]};"
           f" max |dx|/(1+|x|) {out['max_rel_dx']:.3e}, max |df|/(1+|f|) "
-          f"{out['max_rel_df']:.3e} where both converged, x beyond "
-          f"{CARD_CPU_XTOL[name]} at {out['x_beyond']}; CPU signals "
-          f"{out['cpu_signals']}, mean {out['cpu_mean_iters']:.6f}, max "
-          f"{out['cpu_max_iters']} iterations, {cpu_wall:.1f} s", flush=True)
-    for what, split, classified in (
-            ("signals differ", sig_diff, CLASSIFIED_SIGNAL_SPLITS),
-            (f"x differs by more than {CARD_CPU_XTOL[name]} (1+|x|)", beyond,
-             CLASSIFIED_X_SPLITS)):
-        unclassified = sorted(set(split) - set(classified.get(name, ())))
-        if unclassified:
-            raise AssertionError(f"{name}: card and CPU {what} at "
-                                 f"{unclassified}, classified nowhere "
-                                 f"(ROADMAP Queue 3)")
+          f"{out['max_rel_df']:.3e} where both converged; "
+          f"{out['stop_apart']} converged at different iteration counts, "
+          f"beyond {CARD_CPU_XTOL[name]} (held within {STOP_APART_XTOL}) at "
+          f"{{index: (dx, card, CPU iterations)}} "
+          f"{out['stop_apart_beyond_xtol']}; x beyond its bound at "
+          f"{out['x_beyond']}; CPU signals {out['cpu_signals']}, mean "
+          f"{out['cpu_mean_iters']:.6f}, max {out['cpu_max_iters']} "
+          f"iterations, {cpu_wall:.1f} s", flush=True)
+    unclassified = sorted(set(sig_diff)
+                          - set(CLASSIFIED_SIGNAL_SPLITS.get(name, ())))
+    if unclassified:
+        raise AssertionError(f"{name}: card and CPU signals differ at "
+                             f"{unclassified}, classified nowhere (ROADMAP "
+                             f"Queue 3)")
+    if beyond:
+        raise AssertionError(f"{name}: card and CPU x differ beyond "
+                             f"{CARD_CPU_XTOL[name]} (1+|x|), or "
+                             f"{STOP_APART_XTOL} at other iteration counts, "
+                             f"at {out['x_beyond']}")
     return out
+
+
+def retype(data, leaves):
+    """``leaves`` in ``data``'s container (a NamedTuple or a tuple)."""
+    leaves = tuple(leaves)
+    return type(data)(*leaves) if hasattr(data, "_fields") else leaves
+
+
+def stack(results):
+    """One result of batched tensors from a list of per-instance results."""
+    return type(results[0])(*(
+        type(f)(*(torch.stack(c) for c in zip(*g)))
+        if isinstance(f, tuple) else torch.stack(g)
+        for f, g in zip(results[0], zip(*results))))
+
+
+def solve_bucket(prob, data, x0b, cfg, device):
+    """A whole bucket through ``solve_fleet``, phase 16's call, on
+    ``device`` (the data and x0 moved there), stacked."""
+    from pyipm_tpu_torch import solve_fleet
+    from pyipm_tpu_torch.core.linesearch import take
+    data = retype(data, (t.to(device) for t in data))
+    Bn = x0b.shape[0]
+    return stack(solve_fleet([prob] * Bn, list(x0b.to(device)), cfg,
+                             params=[take(data, i) for i in range(Bn)],
+                             device=device))
 
 
 def mixed_fleet_phase(cfg, device, counters, sl, ll, _sync):
@@ -1273,12 +1312,6 @@ def mixed_fleet_phase(cfg, device, counters, sl, ll, _sync):
 
     def rows(data, idx):
         return [take(data, i) for i in idx]
-
-    def stack(results):
-        return type(results[0])(*(
-            type(f)(*(torch.stack(c) for c in zip(*g)))
-            if isinstance(f, tuple) else torch.stack(g)
-            for f, g in zip(results[0], zip(*results))))
 
     buckets = mixed_buckets(device)
     out, alone = {}, {}
@@ -1323,11 +1356,8 @@ def mixed_fleet_phase(cfg, device, counters, sl, ll, _sync):
         require_launched(dict(sl.LAUNCHES), name)
         # the same call on the CPU, the whole bucket (its waves depend on
         # the bucket's active set, so a subset is another computation)
-        dcpu = tuple(t.cpu() for t in data)
-        dcpu = type(data)(*dcpu) if hasattr(data, "_fields") else dcpu
         t0 = time.perf_counter()
-        ref = stack(solve_fleet([prob] * Bn, list(x0b.cpu()), cfg,
-                                params=rows(dcpu, range(Bn)), device="cpu"))
+        ref = solve_bucket(prob, data, x0b, cfg, torch.device("cpu"))
         rec["card_vs_cpu"] = card_against_cpu(name, res, ref,
                                               time.perf_counter() - t0)
         if hit < 0.99:

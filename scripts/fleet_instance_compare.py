@@ -4,8 +4,7 @@ time and stop at the first branch that differs.
 
     python scripts/fleet_instance_compare.py BUCKET INDEX
         [--dtype float32|float64] [--iters N] [--context alone|bucket]
-        [--no-bucket-runs] [--jax-bucket] [--no-jax] [--restart]
-        [--plain-solve]
+        [--no-bucket-runs] [--no-jax] [--restart] [--plain-solve]
 
 BUCKET is one of phase 16's buckets (portfolio, svm, maxent, mpc,
 box_qp), drawn by ``chip_smoke.mixed_buckets`` with the phase's seed.
@@ -18,12 +17,13 @@ The sides are ``cuda`` (the port on the card, where there is one),
 and ``jax`` (the JAX package on the CPU, where ``jax`` imports; box_qp
 has no JAX counterpart).
 
-1. Outcomes.  Each side's signal and iteration count for the instance
-   alone (a batch of one: the port's ``BatchSolver``, the JAX package's
-   vmapped ``make_*_batch_solver``) and, unless ``--no-bucket-runs``,
-   inside the whole bucket (the port's ``solve_fleet``, phase 16's call;
-   the JAX package's vmapped bucket only with ``--jax-bucket``: ~35 s for
-   maximum entropy, ~210 s for MPC here).
+1. Outcomes.  Unless ``--no-bucket-runs``, the whole bucket on each of
+   the port's sides (``chip_smoke.solve_bucket``, phase 16's call), held
+   card against CPU by phase 16's own ``chip_smoke.card_against_cpu``
+   (what it would raise is printed, not raised).  Then each side's signal
+   and iteration count for the instance alone (a batch of one: the port's
+   ``BatchSolver``, the JAX package's vmapped ``make_*_batch_solver``)
+   beside its count inside the bucket.
 2. Steps.  Every side starts from the instance's x0 and takes one inner
    iteration at a time (the port: flat steps until the instance's
    iteration count moves; the JAX package: ``run_budget(st, 1)``).  With
@@ -36,15 +36,17 @@ has no JAX counterpart).
    infeasibility |c|_1 it is divided by), alpha_smax,
    alpha_lmax and the accepted alpha, the line search's branch (``full``,
    ``soc``, ``backtrack k``, ``abort``) with phi0, the Armijo right-hand
-   side and phi at the full step and at each trial (first three and the
-   last), the four KKT norms in the working precision and re-evaluated in
-   float64 at the same iterate (``kkt64``), and max |x - x_cpu|.  The
-   branch is recomputed from the state before the step by the side's own
-   package functions (``exact`` says whether that recomputation lands on
-   the step's alpha and signal).  When the retries of a step differ, the
-   residual gate's normwise backward error of the first solve at delta 0
-   is printed for the substitution solve (the port's kernel 2 and its
-   plain version, the JAX package's Pallas kernel on a TPU) and for the
+   side and phi at the full step and at the trials walked (first three and
+   the last), the four KKT norms in the working precision and re-evaluated
+   in float64 at the same iterate (``kkt64``), and max |x - x_cpu|.  The
+   branch comes from the side's own package: its direction, penalty update
+   and ``search`` rerun on the state before the step (``exact`` says
+   whether that rerun lands on the step's alpha and signal); only phi and
+   the right-hand side at each trial are evaluated here.  When the
+   retries of a step differ, the residual gate's normwise backward error
+   of the first solve at delta 0 (each package's own condensed system) is
+   printed for the substitution solve (the port's kernel 2 and its plain
+   version, the JAX package's Pallas kernel on a TPU) and for the
    log-depth-inverse solve (``ldlt_solve_inv``, the JAX package's CPU
    path), both in the working precision and in float64, beside sqrt(eps).
    The run stops after the first iteration whose branch key (outer and
@@ -64,6 +66,7 @@ machine with a card; ``--no-jax`` leaves the JAX side out.
 import argparse
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -79,12 +82,6 @@ FIELDS = ("x", "s", "lda", "mu", "nu", "delta", "kkt", "signal",
 SHOW_TRIALS = 3
 
 
-def retype(data, leaves):
-    """``leaves`` in ``data``'s container (a NamedTuple or a tuple)."""
-    leaves = tuple(leaves)
-    return type(data)(*leaves) if hasattr(data, "_fields") else leaves
-
-
 def counts(sig):
     return {int(k): int(v) for k, v in zip(*np.unique(sig,
                                                       return_counts=True))}
@@ -92,6 +89,32 @@ def counts(sig):
 
 def fmt(v):
     return "[" + " ".join(f"{float(u):.6e}" for u in np.ravel(v)) + "]"
+
+
+def branch_of(out, alpha, soc, aborted, trial, shrink_base, cfg):
+    """Name the branch a package's ``search`` took from its outcome
+    (``alpha``, ``soc``, ``aborted``) and read phi and the Armijo
+    right-hand side at the trials it walked (the first SHOW_TRIALS and the
+    last).  ``trial(n)``: (a_n, phi(a_n), rhs(a_n)) at a_n = a_s tau^n;
+    ``shrink_base(n)``: tau^n times the step norm, the abort test's
+    quantity."""
+    out.update(zip(("phi_full", "rhs_full"), trial(0)[1:]))
+    if soc:
+        return dict(out, branch="soc", alpha=alpha)
+    if not aborted and alpha == out["a_s"]:
+        return dict(out, branch="full", alpha=alpha)
+    if aborted:
+        n = 1
+        while shrink_base(n) >= cfg.eps and n < cfg.max_backtrack:
+            n += 1
+    else:
+        n = max(1, round(np.log(alpha / out["a_s"]) / np.log(cfg.tau)))
+    trials = [trial(j) for j in sorted(set(range(1, min(n, SHOW_TRIALS)
+                                                 + 1)) | {n})]
+    if aborted:
+        return dict(out, branch="abort", alpha=0.0, trials=trials,
+                    abort_test=shrink_base(n))
+    return dict(out, branch=f"backtrack {n}", alpha=alpha, trials=trials)
 
 
 # ----------------------------------------------------------------------
@@ -103,8 +126,9 @@ class PortSide:
         prob, data, x0 = bucket
         dt = cfg.torch_dtype
         self.prob = prob
-        self.data = retype(data, (t.to(self.dev, dt) if t.is_floating_point()
-                                  else t.to(self.dev) for t in data))
+        self.data = cs.retype(data, (t.to(self.dev, dt)
+                                     if t.is_floating_point()
+                                     else t.to(self.dev) for t in data))
         self.x0 = x0.to(self.dev, dt)
         self.solver = BatchSolver(prob, cfg)
 
@@ -115,16 +139,6 @@ class PortSide:
     def alone(self, i):
         r = self.solver(self.x0[i:i + 1], self.rows([i]))
         return int(r.signal[0]), int(r.iter_count[0])
-
-    def bucket(self):
-        from pyipm_tpu_torch import solve_fleet
-        from pyipm_tpu_torch.core.linesearch import take
-        Bn = self.x0.shape[0]
-        res = solve_fleet([self.prob] * Bn, list(self.x0), self.cfg,
-                          params=[take(self.data, j) for j in range(Bn)],
-                          device=self.dev)
-        return (np.array([int(r.signal) for r in res]),
-                np.array([int(r.iter_count) for r in res]))
 
     # stepping ---------------------------------------------------------
     def start(self, ids, k):
@@ -183,13 +197,12 @@ class PortSide:
         return {f: v[self.k] for f, v in self.fields(st).items()}
 
     def anatomy(self):
-        """The branch of the last step of row k, recomputed by the port's
-        own functions on the batch that step ran on."""
+        """The branch of the last step of row k: the port's direction,
+        merit penalty update and ``search`` rerun on the batch that step
+        ran on."""
         from pyipm_tpu_torch.core import kkt as K
-        from pyipm_tpu_torch.core.linesearch import max_step_ftb
+        from pyipm_tpu_torch.core.linesearch import max_step_ftb, search, take
         from pyipm_tpu_torch.core.updates import nu_threshold
-        from pyipm_tpu_torch.ops.linalg import lstsq_minnorm
-        from pyipm_tpu_torch.core.linesearch import take
         prob, cfg = self.prob, self.cfg
         st, p, row = self.stepped()
         D, M, N = prob.nvar, prob.neq, prob.nineq
@@ -208,79 +221,41 @@ class PortSide:
             a_s = max_step_ftb(st.s, dz[:, D:D + N], cfg.tau) if N else one
             a_l = (max_step_ftb(st.lda[:, M:], dz[:, D + N + M:], cfg.tau)
                    if N else one)
+            res = search(prob, cfg, st.x, st.s, st.lda, dz, a_s, a_l, st.mu,
+                         nu, st.signal, p)
             k = slice(row, row + 1)
             x0, s0, mu, nu_k = st.x[k], st.s[k], st.mu[k], nu[k]
             dx, ds, pk = dz[k, :D], dz[k, D:D + N], take(p, [row])
             phi0 = K.phi(prob, x0, s0, mu, nu_k, pk)
             dphi0 = K.dphi(prob, x0, s0, dz[k, :D + N], mu, nu_k, pk)
             slack = 10.0 * cfg.eps * (1.0 + torch.abs(phi0))
-            eta = torch.as_tensor(cfg.eta, dtype=x0.dtype, device=x0.device)
-
-            def rhs(a):
-                return phi0 + a * eta * dphi0 + slack
-
-            def phi(a):
-                return K.phi(prob, x0 + a[:, None] * dx, s0 + a[:, None] * ds,
-                             mu, nu_k, pk)
-
-            am = a_s[k]
-            out = dict(retries=int(st1.reg_retries[row] - st.reg_retries[
-                row]), delta=float(st1.delta[row]), nu=float(nu[row]),
-                bdot=float(bdot[row]), con_l1=float(cl1[row]),
-                a_s=float(am), a_l=float(a_l[row]), phi0=float(phi0),
-                rhs_full=float(rhs(am)), phi_full=float(phi(am)))
-            if out["phi_full"] <= out["rhs_full"]:
-                return dict(out, branch="full", alpha=out["a_s"])
-            if prob.ncon:
-                xa, sa = x0 + am[:, None] * dx, s0 + am[:, None] * ds
-                c_old = torch.sum(torch.abs(K.con(prob, x0, s0, pk)), -1)
-                c_new_v = K.con(prob, xa, sa, pk)
-                c_new = torch.sum(torch.abs(c_new_v), -1)
-                out.update(con_old=float(c_old), con_new=float(c_new))
-                if bool(c_new > c_old):
-                    A = K.jaco(prob, x0, pk).transpose(1, 2)
-                    dzp = -lstsq_minnorm(A, c_new_v)
-                    ok1 = K.phi(prob, xa + dzp[:, :D], sa + dzp[:, D:], mu,
-                                nu_k, pk)
-                    out.update(soc_phi1=float(ok1))
-                    ok = bool(ok1 <= rhs(am))
-                    if N:
-                        ac = max_step_ftb(s0, am[:, None] * ds + dzp[:, D:],
-                                          cfg.tau)
-                        ok2 = K.phi(prob, x0 + ac[:, None] * (am[:, None] * dx
-                                                              + dzp[:, :D]),
-                                    s0 + ac[:, None] * (am[:, None] * ds
-                                                        + dzp[:, D:]),
-                                    mu, nu_k, pk)
-                        out.update(soc_phi2=float(ok2), a_corr=float(ac))
-                        ok = ok and bool(ok2 <= rhs(am))
-                    if ok:
-                        return dict(out, branch="soc", alpha=out["a_s"])
-            tau_t = torch.as_tensor(cfg.tau, dtype=x0.dtype, device=x0.device)
-            base = torch.linalg.vector_norm(am[:, None] * dx, dim=-1)
+            tau, eta = (torch.as_tensor(v, dtype=x0.dtype, device=x0.device)
+                        for v in (cfg.tau, cfg.eta))
+            base = torch.linalg.vector_norm(a_s[k, None] * dx, dim=-1)
             if N:
                 base = torch.sqrt(base ** 2 + torch.linalg.vector_norm(
                     a_l[k, None] * ds, dim=-1) ** 2)
-            trials, W = [], int(cfg.backtrack_chunk)
-            for c in range(-(-cfg.max_backtrack // W)):
-                ks = torch.arange(c * W, c * W + W, device=x0.device)
-                shrink = torch.pow(tau_t, (ks + 1).to(x0.dtype))
-                a = am * shrink
-                ph = K.phi(prob, x0[:, None] + a[None, :, None] * dx[:, None],
-                           s0[:, None] + a[None, :, None] * ds[:, None], mu,
-                           nu_k, pk)[0]
-                rh = rhs(a)
-                for j in range(W):
-                    trials.append((float(a[j]), float(ph[j]), float(rh[j])))
-                    if bool(ph[j] <= rh[j]):
-                        return dict(out, branch=f"backtrack {len(trials)}",
-                                    alpha=float(a[j]), trials=trials)
-                    if bool(shrink[j] * base < cfg.eps):
-                        return dict(out, branch="abort", alpha=0.0,
-                                    trials=trials,
-                                    abort_test=float(shrink[j] * base))
-            return dict(out, branch="backtrack limit", trials=trials,
-                        alpha=trials[-1][0])
+
+            def shrink(n):
+                return torch.pow(tau, torch.as_tensor(
+                    float(n), dtype=tau.dtype, device=tau.device))
+
+            def trial(n):
+                a = a_s[k] * shrink(n)
+                ph = K.phi(prob, x0 + a[:, None] * dx, s0 + a[:, None] * ds,
+                           mu, nu_k, pk)
+                return (float(a), float(ph),
+                        float(phi0 + a * eta * dphi0 + slack))
+
+            out = dict(retries=int(st1.reg_retries[row]
+                                   - st.reg_retries[row]),
+                       delta=float(st1.delta[row]), nu=float(nu[row]),
+                       bdot=float(bdot[row]), con_l1=float(cl1[row]),
+                       a_s=float(a_s[row]), a_l=float(a_l[row]),
+                       phi0=float(phi0))
+            return branch_of(out, float(res.alpha[row]), bool(res.soc[row]),
+                             int(res.signal[row]) == -2, trial,
+                             lambda n: float(shrink(n) * base), cfg)
 
     def gate_probe(self, st):
         """Normwise backward error of the condensed system's first refined
@@ -361,22 +336,13 @@ class JaxSide:
             if self.arrays[f].dtype.kind == "f" else self.arrays[f][ids])
             for f in self.cls._fields))
 
-    def batch_solver(self):
-        japp = self.japp
+    def alone(self, i):
         size = {"portfolio": cs.PORTFOLIO_D, "svm": cs.SVM_N,
                 "maxent": cs.MAXENT_D, "mpc": cs.MPC_T}[self.bucket_name]
-        return getattr(japp, f"make_{self.bucket_name}_batch_solver")(
+        solver = getattr(self.japp, f"make_{self.bucket_name}_batch_solver")(
             self.jcfg, size)
-
-    def alone(self, i):
-        r = self.batch_solver()(self.jnp.asarray(self.x0[i:i + 1]),
-                                self.data([i]))
+        r = solver(self.jnp.asarray(self.x0[i:i + 1]), self.data([i]))
         return int(r.signal[0]), int(r.iter_count[0])
-
-    def bucket(self):
-        r = self.batch_solver()(self.jnp.asarray(self.x0), self.data(
-            slice(None)))
-        return np.asarray(r.signal), np.asarray(r.iter_count)
 
     def start(self, i):
         from pyipm_tpu.core.solver import make_solver
@@ -403,18 +369,18 @@ class JaxSide:
         return {f: np.asarray(getattr(st, f)) for f in FIELDS}
 
     def anatomy(self):
-        """The branch of the last step, recomputed by the JAX package's own
-        functions (each jitted on its own) from the state before it, with
-        the barrier of an outer epilogue that ran before the iteration."""
+        """The branch of the last step: the JAX package's direction,
+        penalty update and ``search`` (each jitted on its own) rerun from
+        the state before it, with the barrier of an outer epilogue that ran
+        before the iteration."""
         jax, jnp = self.jax, self.jnp
         st = self.before
         if int(self.st.outer) != int(st.outer):
             st = st._replace(mu=self.st.mu)
         from pyipm_tpu.core import kkt as K
-        from pyipm_tpu.core.linesearch import max_step_ftb
+        from pyipm_tpu.core.linesearch import max_step_ftb, search
         from pyipm_tpu.core.updates import nu_threshold
         from pyipm_tpu.ops.condensed import condensed_direction
-        from pyipm_tpu.ops.linalg import lstsq_minnorm
         prob, cfg = self.prob, self.jcfg
         D, M, N = prob.nvar, prob.neq, prob.nineq
         dtype = st.x.dtype
@@ -433,99 +399,61 @@ class JaxSide:
         one = jnp.ones((), dtype)
         a_s = max_step_ftb(st.s, dz[D:D + N], cfg.tau) if N else one
         a_l = max_step_ftb(st.lda[M:], dz[D + N + M:], cfg.tau) if N else one
+        res = jax.jit(lambda *a: search(prob, cfg, *a))(
+            st.x, st.s, st.lda, dz, a_s, a_l, st.mu, nu, st.signal)
         x0, s0, mu = st.x, st.s, st.mu
         dx, ds = dz[:D], dz[D:D + N]
         phi_j = jax.jit(lambda x, s: K.phi(prob, x, s, mu, nu))
         phi0 = phi_j(x0, s0)
         dphi0 = K.dphi(prob, x0, s0, dz[:D + N], mu, nu)
         slack = 10.0 * jnp.asarray(cfg.eps, dtype) * (1.0 + jnp.abs(phi0))
-        eta = jnp.asarray(cfg.eta, dtype)
-
-        def rhs(a):
-            return phi0 + a * eta * dphi0 + slack
-
-        def phi(a):
-            return phi_j(x0 + a * dx, s0 + a * ds)
-
-        out = dict(retries=int(retries), delta=float(delta_new),
-                   nu=float(nu), bdot=float(bdot), con_l1=float(cl1),
-                   a_s=float(a_s), a_l=float(a_l),
-                   phi0=float(phi0), rhs_full=float(rhs(a_s)),
-                   phi_full=float(phi(a_s)))
-        if out["phi_full"] <= out["rhs_full"]:
-            return dict(out, branch="full", alpha=out["a_s"])
-        if prob.ncon:
-            xa, sa = x0 + a_s * dx, s0 + a_s * ds
-            c_old = jnp.sum(jnp.abs(K.con(prob, x0, s0)))
-            c_new_v = K.con(prob, xa, sa)
-            c_new = jnp.sum(jnp.abs(c_new_v))
-            out.update(con_old=float(c_old), con_new=float(c_new))
-            if bool(c_new > c_old):
-                dzp = -lstsq_minnorm(K.jaco(prob, x0).T, c_new_v)
-                ok1 = phi_j(xa + dzp[:D], sa + dzp[D:])
-                out.update(soc_phi1=float(ok1))
-                ok = bool(ok1 <= rhs(a_s))
-                if N:
-                    ac = max_step_ftb(s0, a_s * ds + dzp[D:], cfg.tau)
-                    ok2 = phi_j(x0 + ac * (a_s * dx + dzp[:D]),
-                                s0 + ac * (a_s * ds + dzp[D:]))
-                    out.update(soc_phi2=float(ok2), a_corr=float(ac))
-                    ok = ok and bool(ok2 <= rhs(a_s))
-                if ok:
-                    return dict(out, branch="soc", alpha=out["a_s"])
-        tau = jnp.asarray(cfg.tau, dtype)
+        tau, eta = jnp.asarray(cfg.tau, dtype), jnp.asarray(cfg.eta, dtype)
         base = jnp.linalg.norm(a_s * dx)
         if N:
             base = jnp.sqrt(base ** 2 + jnp.linalg.norm(a_l * ds) ** 2)
-        trials, W = [], int(cfg.backtrack_chunk)
-        for c in range(-(-cfg.max_backtrack // W)):
-            shrink = jnp.power(tau, (c * W + jnp.arange(W) + 1).astype(dtype))
-            a = a_s * shrink
-            ph = jax.vmap(phi)(a)
-            rh = rhs(a)
-            for j in range(W):
-                trials.append((float(a[j]), float(ph[j]), float(rh[j])))
-                if bool(ph[j] <= rh[j]):
-                    return dict(out, branch=f"backtrack {len(trials)}",
-                                alpha=float(a[j]), trials=trials)
-                if bool(shrink[j] * base < cfg.eps):
-                    return dict(out, branch="abort", alpha=0.0,
-                                trials=trials,
-                                abort_test=float(shrink[j] * base))
-        return dict(out, branch="backtrack limit", trials=trials,
-                    alpha=trials[-1][0])
+
+        def shrink(n):
+            return jnp.power(tau, jnp.asarray(n, dtype))
+
+        def trial(n):
+            a = a_s * shrink(n)
+            return (float(a), float(phi_j(x0 + a * dx, s0 + a * ds)),
+                    float(phi0 + a * eta * dphi0 + slack))
+
+        out = dict(retries=int(retries), delta=float(delta_new),
+                   nu=float(nu), bdot=float(bdot), con_l1=float(cl1),
+                   a_s=float(a_s), a_l=float(a_l), phi0=float(phi0))
+        return branch_of(out, float(res.alpha), bool(res.soc),
+                         int(res.signal) == -2, trial,
+                         lambda n: float(shrink(n) * base), cfg)
 
     def gate_probe(self, st):
         """The port's gate probe by the JAX package's own arithmetic: its
-        condensed assembly (condensed.py:46-79), Ruiz scaling, unrolled
-        factor, and the log-depth-inverse solve of its CPU path beside a
-        substitution solve."""
+        condensed system (``condensed_direction``'s, taken where it calls
+        ``reg_solve_kkt``), Ruiz scaling, unrolled factor, and the
+        log-depth-inverse solve of its CPU path beside a substitution
+        solve."""
         jax, jnp = self.jax, self.jnp
         from jax.scipy.linalg import solve_triangular
-        from pyipm_tpu.core import kkt as K
+        from pyipm_tpu.ops import condensed as jc
         from pyipm_tpu.ops import linalg as jlin
         from pyipm_tpu.ops import pallas_ldlt as pk
-        prob = self.prob
-        D, M, N = prob.nvar, prob.neq, prob.nineq
 
-        def assemble(x, s, lda, mu):
-            dtype = x.dtype
-            g = -K.grad(prob, x, s, lda, mu)
-            g1, g2 = g[:D], g[D:D + N]
-            g3, g4 = g[D + N:D + N + M], g[D + N + M:]
-            d2L = prob.hess_lagrangian(x, lda)
-            A = jnp.triu(d2L) + jnp.triu(d2L, 1).T
-            rhs = g1
-            if N:
-                Ji = prob.jac_ci(x)
-                sig = lda[M:] / (s + jnp.sqrt(jnp.finfo(dtype).tiny))
-                A = A + (Ji * sig[None, :]) @ Ji.T
-                rhs = g1 + Ji @ (sig * g4 + g2)
-            if M:
-                Je = prob.jac_ce(x)
-                A = jnp.block([[A, Je], [Je.T, jnp.zeros((M, M), dtype)]])
-                rhs = jnp.concatenate([rhs, g3])
-            return (A + A.T) * jnp.asarray(0.5, dtype), rhs
+        class Taken(Exception):
+            pass
+
+        def take_system(Kc, rhs, *args, **kw):
+            raise Taken(Kc, rhs)
+
+        def assemble(x, s, lda, mu, delta):
+            solve, jc.reg_solve_kkt = jc.reg_solve_kkt, take_system
+            try:
+                jc.condensed_direction(self.prob, self.jcfg, x, s, lda, mu,
+                                       delta)
+            except Taken as t:
+                return t.args
+            finally:
+                jc.reg_solve_kkt = solve
 
         def berr(H, b, solve1):
             Hs, dsc = jlin.ruiz_scale(H)
@@ -548,7 +476,7 @@ class JaxSide:
             return solve_triangular(L.T, y / safe, lower=False,
                                     unit_diagonal=True)
 
-        H, b = jax.jit(assemble)(st.x, st.s, st.lda, st.mu)
+        H, b = jax.jit(assemble)(st.x, st.s, st.lda, st.mu, st.delta)
         out = {}
         for tag, (Hc, bc) in (("", (H, b)), ("64", (H.astype(jnp.float64),
                                                     b.astype(jnp.float64)))):
@@ -611,10 +539,8 @@ def print_row(name, r, before, an, k64, x_ref):
                 f"nu {an['nu']:.6e}; a_s "
                 f"{an['a_s']:.9e} a_l {an['a_l']:.9e} phi0 {an['phi0']:.9e} "
                 f"full: phi {an['phi_full']:.9e} rhs {an['rhs_full']:.9e}")
-        for k in ("con_old", "con_new", "soc_phi1", "soc_phi2", "a_corr",
-                  "abort_test"):
-            if k in an:
-                desc += f" {k} {an[k]:.9e}"
+        if "abort_test" in an:
+            desc += f" abort_test {an['abort_test']:.9e}"
         print(desc)
         trials = an.get("trials", [])
         show = trials[:SHOW_TRIALS] + (trials[-1:] if len(trials)
@@ -634,7 +560,6 @@ def main():
     ap.add_argument("--context", default="alone",
                     choices=("alone", "bucket"))
     ap.add_argument("--no-bucket-runs", action="store_true")
-    ap.add_argument("--jax-bucket", action="store_true")
     ap.add_argument("--no-jax", action="store_true")
     ap.add_argument("--restart", action="store_true")
     ap.add_argument("--plain-solve", action="store_true")
@@ -667,28 +592,28 @@ def main():
           f"{cfg.Ktol}, sides {[s.name for s in sides]}"
           + (" + jax" if jside else ""), flush=True)
 
-    runs = {}
+    runs, walls = {}, {}
     if not args.no_bucket_runs:
-        for s in sides + ([jside] if jside and args.jax_bucket else []):
-            runs[s.name] = s.bucket()
-            sig, its = runs[s.name]
-            print(f"  {s.name} bucket: signals "
-                  f"{counts(sig)}, mean "
-                  f"{its.mean():.6f}, max {its.max()} iterations", flush=True)
-        names = list(runs)
-        for a in names:
-            for b in names:
-                if a < b:
-                    sa, ia = runs[a]
-                    sb, ib = runs[b]
-                    print(f"  bucket {a} vs {b}: signals differ at "
-                          f"{np.flatnonzero(sa != sb).tolist()}; iterations "
-                          f"equal {int(np.sum(ia == ib))}/{ia.size}, differ "
-                          f"first at {np.flatnonzero(ia != ib)[:20].tolist()}")
+        for s in sides:
+            t0 = time.perf_counter()
+            res = cs.solve_bucket(prob, data, bucket[2], cfg, s.dev)
+            walls[s.name] = time.perf_counter() - t0
+            runs[s.name] = (res.signal.cpu().numpy(),
+                            res.iter_count.cpu().numpy(), res)
+            sig, its, _ = runs[s.name]
+            print(f"  {s.name} bucket: signals {counts(sig)}, mean "
+                  f"{its.mean():.6f}, max {its.max()} iterations, "
+                  f"{walls[s.name]:.1f} s", flush=True)
+        if "cuda" in runs:
+            try:
+                cs.card_against_cpu(args.bucket, runs["cuda"][2],
+                                    runs["cpu"][2], walls["cpu"])
+            except AssertionError as e:
+                print(f"  phase 16 would raise: {e}")
     if args.index == "auto":
         if "cuda" not in runs:
             raise SystemExit("index auto needs the card and the bucket runs")
-        (sg, ig), (sc, ic) = runs["cuda"], runs["cpu"]
+        (sg, ig, _), (sc, ic, _) = runs["cuda"], runs["cpu"]
         diff = np.flatnonzero(sg != sc)
         diff = diff if diff.size else np.flatnonzero(ig != ic)
         if not diff.size:
@@ -713,7 +638,7 @@ def main():
     if jside:
         jside.start(i)
     from pyipm_tpu_torch.core.linesearch import take
-    data64 = take(retype(data, (t.double() if t.is_floating_point() else t
+    data64 = take(cs.retype(data, (t.double() if t.is_floating_point() else t
                                 for t in data)), torch.as_tensor([i]))
     cpu = sides[-1]
     stepping = sides + ([jside] if jside else [])

@@ -1,7 +1,7 @@
 """Time the batched small LDL^T factor (kernel 1) and solve (kernel 2) of
 one checkout on the card.
 
-    python scripts/time_small_ldlt.py [--root DIR] [--no-solve]
+    python scripts/time_small_ldlt.py [--root DIR]
 
 Imports ``pyipm_tpu_torch`` from ``--root`` (default: this checkout), so
 that two trees, say a parent unpacked with ``git archive`` and this one, are
@@ -9,7 +9,7 @@ timed in one call by the same code: ``chip_smoke.factor_timings`` at each
 f32 shape of ``chip_smoke.TIMED_SHAPES``, ``FACTOR_ONLY_SHAPE`` and
 ``WIDE_SHAPES`` ((10000, 16), (10000, 36), (512, 128), and phase 16's
 (2048, n) at n = 65, 67, 80, 96, 97), and the f64 factor at (512, 128), on
-inputs drawn from its ``SEED``; then (unless ``--no-solve``) the solve at
+inputs drawn from its ``SEED``; then the solve at
 phase 16's (2048, n) for n = 40, 65, 67, 80, 97: ms per call, device ms
 per launch, the plain version, ``torch.linalg.ldl_solve`` with identity
 pivots (one call after a warm-up) and ``chip_smoke.solve_bound``.
@@ -71,7 +71,6 @@ def solve_timings(sl, gen, dev):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--no-solve", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_small_ldlt: needs a CUDA card", file=sys.stderr)
@@ -95,8 +94,7 @@ def main():
     words = n * (n + 1) // 2 + n * n + n
     report_factor("f64", Bn, n, t, *bound(Bn * words * 8,
                                           Bn * 2 * n ** 3 / 3, F64_FLOPS))
-    if not args.no_solve:
-        solve_timings(sl, gen, dev)
+    solve_timings(sl, gen, dev)
     return 0
 
 

@@ -65,7 +65,11 @@ def test_mpc_five_fail_on_jax_cpu_path_only(f32):
     np.testing.assert_array_equal(jsig[:N0], sig[:N0])
     np.testing.assert_array_equal(np.asarray(jres.iter_count)[:N0],
                                   port.iter_count.numpy()[:N0])
-    # the classified outcome of each package on the five
+    # the classified outcome of each package on the five.  The JAX side is
+    # decided by the rounding of its CPU path: on 297 its gate reads
+    # 3.591e-4 against sqrt(eps) = 3.453e-4 at iteration 4, 4% over (jax
+    # and jaxlib 0.9.0, XLA's CPU backend on x86-64); another XLA build
+    # may round it under the gate and converge
     assert np.all(jsig[N0:N5] == -1), jsig[N0:N5]
     assert np.all(np.asarray(jres.iter_count)[N0:N5] >= 184)
     assert np.all(sig[N0:N5] == 1)
@@ -79,7 +83,10 @@ def test_mpc_slow_tail_stationarity_is_float32_roundoff():
     """At the float64 solution rounded to float32, both packages' float32
     dL/dx differs from its float64 value in norm by more than Ktol/4 on
     each of the twelve and by more than Ktol at their median: their
-    float32 stopping test is decided by roundoff."""
+    float32 stopping test is decided by roundoff.  Margins (jax and jaxlib
+    0.9.0 and torch 2.13 on the CPU, x86-64): the smallest error is 0.86
+    Ktol in the port and 0.44 Ktol in the JAX package, 3.4x and 1.8x the
+    Ktol/4 bound."""
     arr = fp.rows_of("mpc", fp.MPC_SLOW)
     data32 = app.mpc_data(arr, device="cpu")
     data64 = app.mpc_data(arr, device="cpu", dtype=torch.float64)
