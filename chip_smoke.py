@@ -16,7 +16,9 @@ Phases, each raising on failure:
      67, 80, 96 and 97, B = 2,048); the factor bitwise on exact zero
      pivots, NaN and Inf at n = 65, 100 and 128; both timed at (10000,
      16) and (10000, 36), the factor also at (512, 128) and at phase
-     16's sizes above 64 (its wide branch);
+     16's sizes above 64 (its wide branch), the solve also at (2048, 97)
+     (its wide kernel); the wide solve's instances resident an SM at
+     n = 65, 80, 97 and 128;
   4. slice A: the 10,000-QP float32 fleet through ``solve_batch`` on
      cuda:0, launch counters reset just before the timed solve;
   5. the same first 64 instances on CPU tensors (the plain path) against
@@ -72,8 +74,10 @@ Phases, each raising on failure:
      (256, 1024) on blocks with wrong inertia (and eq blocks to
      regularize) against the same call on the plain versions (shifts,
      retries bitwise; backward error no worse); kernel 1 bitwise at
-     (65536, 16) and (16384, 17), the batched kernel 3 at B = 256 and 1,
-     panel by panel; their timings;
+     (65536, 16) and (16384, 17), the batched kernel 3 at B = 1, 131,
+     132, 133, 256 and 264 (random, indefinite and exact-zero-pivot
+     panels, either variant of ``panels_per_sm``); its two-panel variant
+     resident two an SM; their timings;
  20. not run: the million-variable separable NLP (K = 4096, d = 256,
      mc = 8; the unrolled branch, no kernel) in float32 ends at signal -1,
      its stationarity norm stalled at the float32 error of its own
@@ -164,6 +168,9 @@ RESIDUAL_C = 2.0
 # the elementwise tolerance to the plain version widened (see check_solve)
 PIVOT_FLOOR = 1e-2
 PANEL_SIZES = (1, 2, 31, 33, 64, 100, 127, 128)
+# batches of 128-panels held bitwise in phase 19: one panel, and the edges
+# of one and two panels an SM on the H100's 132 SMs
+PANEL_BATCHES = (1, 131, 132, 133, 256, 264)
 TIMED_SHAPES = ((10_000, 16), (10_000, 36))
 FACTOR_ONLY_SHAPE = (512, 128)
 REPS = 50                      # CUDA-event timings of a kernel call
@@ -469,6 +476,66 @@ def hold_small(sl, gen, Bn, n, dtype, device):
     return e_factor, e_solve
 
 
+def solve_timings(sl, gen, A, device):
+    """Kernel 2 on the factors of A (B, n, n), f32, a random b and row
+    scale: ms per call and device ms per launch, with and without the
+    scale, the products taken outside, the wrapper at B = 1, the plain
+    version, the library yardstick and the bound."""
+    Bn, n, _ = A.shape
+    b = torch.randn(Bn, n, generator=gen).to(device)
+    L, d = sl.ldlt_factor_small(A)
+    # library yardstick of the solve: LAPACK-style LDL^T solve with
+    # identity pivots (timed here only, never called by the port); it
+    # takes seconds per call, so one rep after a warm-up, and at
+    # LIBRARY_SMALL_B instances if the warm-up exceeds LIBRARY_SLOW_S
+    LD = torch.tril(L, -1) + torch.diag_embed(d)
+    piv = torch.arange(1, n + 1, dtype=torch.int32,
+                       device=device).expand(Bn, n).contiguous()
+    lib_b = Bn
+    lib_solve, warm = library_ms(lambda: torch.linalg.ldl_solve(
+        LD, piv, b[..., None]), "torch.linalg.ldl_solve")
+    if lib_solve is None and warm is not None:
+        lib_b = LIBRARY_SMALL_B
+        lib_solve, warm = library_ms(lambda: torch.linalg.ldl_solve(
+            LD[:lib_b], piv[:lib_b], b[:lib_b, :, None]),
+            "torch.linalg.ldl_solve")
+    sc = 0.25 + torch.rand(Bn, n, generator=gen).to(device)
+    solve_k = ("ldlt_solve_kernel",)
+    return dict(
+        solve_device=device_ms(lambda: sl.ldlt_solve_small(L, d, b),
+                               solve_k),
+        solve=cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), REPS),
+        # the wrapper's enqueue floor: the same call at B = 1
+        solve_floor=cuda_ms(lambda: sl.ldlt_solve_small(
+            L[:1], d[:1], b[:1]), REPS),
+        # scaled: one launch, against the products taken outside
+        solve_scaled=cuda_ms(lambda: sl.ldlt_solve_small(
+            L, d, b, scale=sc), REPS),
+        solve_scaled_device=device_ms(lambda: sl.ldlt_solve_small(
+            L, d, b, scale=sc), solve_k),
+        solve_scaled_outside=cuda_ms(lambda: sc * sl.ldlt_solve_small(
+            L, d, (sc * b).contiguous()), REPS),
+        solve_plain=cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 10),
+        solve_library=lib_solve,
+        solve_library_b=lib_b,
+        solve_library_note=(f"warm-up {warm:.1f} s" if warm is not None
+                            else "unavailable"),
+        solve_bound=solve_bound(Bn, n))
+
+
+def print_solve_timings(Bn, n, t):
+    print(f"  f32 B={Bn} n={n}: solve {t['solve']:.4f} ms (device "
+          f"{t['solve_device'][0]:.4f} ms in {t['solve_device'][2]} "
+          f"launches per call, the wrapper at B=1 {t['solve_floor']:.4f} "
+          f"ms, plain {t['solve_plain']:.4f} ms, ldl_solve "
+          f"{t['solve_library']} ms at B={t['solve_library_b']} "
+          f"({t['solve_library_note']}), bound {t['solve_bound'][0]:.5f} "
+          f"ms), scaled solve {t['solve_scaled']:.4f} ms (device "
+          f"{t['solve_scaled_device'][0]:.4f} ms; products outside "
+          f"{t['solve_scaled_outside']:.4f} ms), CUDA events, median",
+          flush=True)
+
+
 def check_small_kernels(sl, device):
     """Phase 3; returns per-kernel error, timing and bound records."""
     gen = torch.Generator().manual_seed(SEED)
@@ -481,6 +548,7 @@ def check_small_kernels(sl, device):
                 err["solve"] = max(err["solve"], e_solve)
             if dtype == torch.float32 and (Bn, n) == WIDE_ROW_SHAPE:
                 err["factor_wide"] = e_factor
+                err["solve_wide"] = e_solve
 
         # the solve at every lane layout, with and without the row scale
         worst, wide = 0.0, 0
@@ -549,63 +617,16 @@ def check_small_kernels(sl, device):
     times = {}
     for Bn, n in TIMED_SHAPES:
         A = rand_sym(gen, Bn, n, torch.float32, device)
-        b = torch.randn(Bn, n, generator=gen).to(device)
-        L, d = sl.ldlt_factor_small(A)
-        # library yardstick of the solve: LAPACK-style LDL^T solve with
-        # identity pivots (timed here only, never called by the port); it
-        # takes seconds per call, so one rep after a warm-up, and at
-        # LIBRARY_SMALL_B instances if the warm-up exceeds LIBRARY_SLOW_S
-        LD = torch.tril(L, -1) + torch.diag_embed(d)
-        piv = torch.arange(1, n + 1, dtype=torch.int32,
-                           device=device).expand(Bn, n).contiguous()
-        lib_b = Bn
-        lib_solve, warm = library_ms(lambda: torch.linalg.ldl_solve(
-            LD, piv, b[..., None]), "torch.linalg.ldl_solve")
-        if lib_solve is None and warm is not None:
-            lib_b = LIBRARY_SMALL_B
-            lib_solve, warm = library_ms(lambda: torch.linalg.ldl_solve(
-                LD[:lib_b], piv[:lib_b], b[:lib_b, :, None]),
-                "torch.linalg.ldl_solve")
-        lib_note = (f"warm-up {warm:.1f} s" if warm is not None
-                    else "unavailable")
-        sc = 0.25 + torch.rand(Bn, n, generator=gen).to(device)
-        solve_k = ("ldlt_solve_kernel",)
-        times[n] = dict(
-            factor_timings(sl, A),
-            solve_device=device_ms(lambda: sl.ldlt_solve_small(L, d, b),
-                                   solve_k),
-            solve=cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), REPS),
-            # the wrapper's enqueue floor: the same call at B = 1
-            solve_floor=cuda_ms(lambda: sl.ldlt_solve_small(
-                L[:1], d[:1], b[:1]), REPS),
-            # scaled: one launch, against the products taken outside
-            solve_scaled=cuda_ms(lambda: sl.ldlt_solve_small(
-                L, d, b, scale=sc), REPS),
-            solve_scaled_device=device_ms(lambda: sl.ldlt_solve_small(
-                L, d, b, scale=sc), solve_k),
-            solve_scaled_outside=cuda_ms(lambda: sc * sl.ldlt_solve_small(
-                L, d, (sc * b).contiguous()), REPS),
-            solve_plain=cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 10),
-            solve_library=lib_solve,
-            solve_library_b=lib_b,
-            solve_bound=solve_bound(Bn, n))
+        times[n] = dict(factor_timings(sl, A),
+                        **solve_timings(sl, gen, A, device))
         t = times[n]
         print(f"  f32 B={Bn} n={n}: factor {t['factor']:.4f} ms "
               f"(device {t['factor_device'][0]:.4f} ms per launch in "
               f"{t['factor_device'][2]} launches per call by "
               f"{t['factor_device'][1]}, the wrapper at B=1 "
               f"{t['factor_floor']:.4f} ms, plain {t['factor_plain']:.4f} ms, "
-              f"bound {t['factor_bound'][0]:.5f} ms), solve "
-              f"{t['solve']:.4f} ms (device {t['solve_device'][0]:.4f} ms in "
-              f"{t['solve_device'][2]} launches per call, "
-              f"the wrapper at B=1 {t['solve_floor']:.4f} ms, "
-              f"plain {t['solve_plain']:.4f} ms, ldl_solve {lib_solve} ms at "
-              f"B={lib_b} ({lib_note}), "
-              f"bound {t['solve_bound'][0]:.5f} ms), scaled solve "
-              f"{t['solve_scaled']:.4f} ms (device "
-              f"{t['solve_scaled_device'][0]:.4f} ms; products outside "
-              f"{t['solve_scaled_outside']:.4f} ms), CUDA events, median",
-              flush=True)
+              f"bound {t['factor_bound'][0]:.5f} ms)", flush=True)
+        print_solve_timings(Bn, n, t)
 
     # the factor alone at the wide branch's largest size and at phase 16's
     # sizes above 64
@@ -620,6 +641,17 @@ def check_small_kernels(sl, device):
               f"{t['factor_plain']:.4f} ms, bound {t['factor_bound'][0]:.5f} "
               f"ms by {t['factor_bound'][1]}), CUDA events, median",
               flush=True)
+        if (Bn, n) == WIDE_ROW_SHAPE:
+            # the solve's wide kernel, at the kernels line's wide row
+            t.update(solve_timings(sl, gen, A, device))
+            print_solve_timings(Bn, n, t)
+    err["solve_residency"] = {}
+    for n in (65, 80, 97, 128):
+        warps, ctas = sl.solve_residency(n, torch.float32, device)
+        err["solve_residency"][n] = warps * ctas
+        print(f"  ldlt_solve_small at n={n}, f32: {warps} warps (instances) "
+              f"a CTA, {ctas} CTAs resident an SM by the occupancy "
+              f"calculator: {warps * ctas} instances an SM", flush=True)
     return err, times
 
 
@@ -1675,27 +1707,55 @@ def schur_factor_phase(lin, sl, ll, cfg, device):
             library_ms=None, bound=factor_bound(Bn, n), shape=[Bn, n])
         print(f"  ok kernel 1 at ({Bn}, {n}): bitwise equal to "
               f"ldlt_factor_small_ref", flush=True)
-    P = rand_sym(torch.Generator().manual_seed(7), 256, 128, torch.float32,
-                 device)
-    for Bn in (256, 1):
-        Pb = P[:Bn].contiguous()
+    # the batched kernel 3 at the wave edges of its variants (panels_per_sm
+    # switches above the SM count), on random, indefinite (rand_sym's every
+    # 7th) and exact-zero-pivot panels (every 11th)
+    Q = rand_sym(torch.Generator().manual_seed(11), max(PANEL_BATCHES), 128,
+                 torch.float32, device)
+    Q[5::11] = torch.as_tensor(exact_zero_pivot_panel(128, 5),
+                               dtype=torch.float32, device=device)
+    sms = ll.sm_count(device)
+    for Bn in PANEL_BATCHES:
+        Pb = Q[:Bn].contiguous()
         L, d = ll.panel_ldlt(Pb)
-        for i in range(Bn):
-            Lr, dr = ll.panel_ldlt_ref(Pb[i])
-            if not (same_bits(L[i], Lr) and same_bits(d[i], dr)):
-                raise AssertionError(f"batched kernel 3 (B = {Bn}) panel "
-                                     f"{i} differs from panel_ldlt_ref")
-        L1, d1 = ll.panel_ldlt(Pb[0])
-        if not (same_bits(L1, L[0]) and same_bits(d1, d[0])):
-            raise AssertionError("kernel 3 on one panel differs from the "
-                                 "same panel in a batch")
-        print(f"  ok batched kernel 3 at ({Bn}, 128, 128): bitwise equal "
-              f"to panel_ldlt_ref panel by panel", flush=True)
+        Lr, dr = ll.panel_ldlt_ref(Pb)
+        if not (same_bits(L, Lr) and same_bits(d, dr)):
+            bad = [i for i in range(Bn) if not (same_bits(L[i], Lr[i])
+                                                and same_bits(d[i], dr[i]))]
+            raise AssertionError(f"batched kernel 3 (B = {Bn}) differs from "
+                                 f"panel_ldlt_ref at panels {bad[:10]}")
+        if Bn == 256:
+            # the batched reference against the reference panel by panel
+            for i in range(Bn):
+                Li, di = ll.panel_ldlt_ref(Pb[i])
+                if not (same_bits(Li, Lr[i]) and same_bits(di, dr[i])):
+                    raise AssertionError(f"panel_ldlt_ref batched differs "
+                                         f"from panel {i} alone")
+        for i in {0, Bn - 1}:
+            L1, d1 = ll.panel_ldlt(Pb[i])
+            if not (same_bits(L1, L[i]) and same_bits(d1, d[i])):
+                raise AssertionError("kernel 3 on one panel differs from "
+                                     "the same panel in a batch")
+        print(f"  ok batched kernel 3 at ({Bn}, 128, 128), "
+              f"{ll.panels_per_sm(Bn, sms, torch.float32)} panels an SM "
+              f"({sms} SMs): bitwise equal to panel_ldlt_ref", flush=True)
+    residency = {per_sm: ll.panel_residency(per_sm, torch.float32, device)
+                 for per_sm in (1, 2)}
+    print(f"  kernel 3, f32, n = 128: the one-panel variant {residency[1]} "
+          f"CTAs (panels) resident an SM, the two-panel variant "
+          f"{residency[2]}, by the occupancy calculator", flush=True)
+    if residency[2] < 2:
+        raise AssertionError("the two-panel variant of kernel 3 does not "
+                             "put two panels on an SM")
+    del Q
+    P = rand_sym(torch.Generator().manual_seed(7), LARGE["K"], 128,
+                 torch.float32, device)
     rec["panel_ldlt_batched"] = dict(
         max_abs_err=0.0, ms=cuda_ms(lambda: ll.panel_ldlt(P), REPS),
         device_ms=device_ms(lambda: ll.panel_ldlt(P), ("panel_ldlt_kernel",)),
         plain_ms=cuda_ms(lambda: ll.panel_ldlt_ref(P), 3), library_ms=None,
-        bound=factor_bound(256, 128), shape=[256, 128, 128])
+        bound=factor_bound(LARGE["K"], 128), shape=[LARGE["K"], 128, 128],
+        panels_resident_per_sm=residency)
     for name, r in rec.items():
         print(f"  f32 {name} at {r['shape']}: {r['ms']:.4f} ms per call, "
               f"device {r['device_ms'][0]:.4f} ms per launch "
@@ -1727,7 +1787,8 @@ def block_solve(fn, x0, theta, ccdata, counters, sl, ll, _sync, what,
                kernel3_by_b={str(k[1]): v
                              for k, v in ll.LAUNCHES_BY_B.items() if v},
                launches={**sl.LAUNCHES, **ll.LAUNCHES},
-               max_memory_bytes=torch.cuda.max_memory_allocated())
+               max_memory_bytes=torch.cuda.max_memory_allocated(),
+               digests=digests(res.signal, res.iter_count, res.x))
     st0 = fn.init_state(x0, theta, ccdata)
     _, busy, pwall, idle = busy_share(
         lambda: fn.run_budget(st0, theta, ccdata, profile_iters))
@@ -1739,7 +1800,8 @@ def block_solve(fn, x0, theta, ccdata, counters, sl, ll, _sync, what,
           f"all-reduces {calls} ({out['all_reduces_per_iter']:.2f} an "
           f"iteration) kernel 1 launches by n {out['kernel1_by_n']} kernel "
           f"3 launches by B {out['kernel3_by_b']} max memory "
-          f"{out['max_memory_bytes']} B; first {profile_iters} iterations "
+          f"{out['max_memory_bytes']} B, digests {out['digests']}; first "
+          f"{profile_iters} iterations "
           f"profiled: device busy {busy:.1f} ms of {pwall:.3f} s (idle "
           f"{100 * idle:.1f}%)", flush=True)
     if sig not in signals:
@@ -2394,9 +2456,12 @@ def main() -> int:
     wide_launches = sum(
         c for n, c in mixed["all_buckets"]["launches_by_n"].get(
             "factor", {}).items() if int(n) > 64)
-    if wide_launches == 0:
+    wide_solve_launches = sum(
+        c for n, c in mixed["all_buckets"]["launches_by_n"].get(
+            "solve", {}).items() if int(n) > 64)
+    if wide_launches == 0 or wide_solve_launches == 0:
         raise AssertionError("the mixed fleet never launched kernel 1's "
-                             "wide branch")
+                             "or kernel 2's wide branch")
     path_launches = {s: dense[s]["launches"] for s in dense}
     record = {"kernels": [
         row("ldlt_factor_small", "pyipm_tpu/ops/pallas_ldlt.py:49", small,
@@ -2416,6 +2481,12 @@ def main() -> int:
             dict(max_abs_err=err["factor_wide"], ms=tw["factor"],
                  device_ms=tw["factor_device"], plain_ms=tw["factor_plain"],
                  bound=tw["factor_bound"], library_ms=None),
+            list(WIDE_ROW_SHAPE)),
+        row("ldlt_solve_small_wide", "pyipm_tpu/ops/pallas_ldlt.py:92",
+            small, wide_solve_launches,
+            dict(max_abs_err=err["solve_wide"], ms=tw["solve"],
+                 device_ms=tw["solve_device"], plain_ms=tw["solve_plain"],
+                 bound=tw["solve_bound"], library_ms=tw["solve_library"]),
             list(WIDE_ROW_SHAPE)),
         row("panel_ldlt", "pyipm_tpu/ops/pallas_ldlt.py:198",
             "pyipm_tpu_torch/csrc/panel_ldlt.cu",
@@ -2479,6 +2550,7 @@ def main() -> int:
         "wave_fleet": wave, "budget_resume": budget, "rescue": rescue,
         "mixed_fleet": mixed, "observability": observe,
         "sizes_held_in_phase_18": held_late,
+        "ldlt_solve_small_wide_instances_per_sm": err["solve_residency"],
         "schur_factor": schur_factor, "schur": schur,
         "sizes_held_after_phase_23": held_schur,
         "total_s": time.perf_counter() - T_START}

@@ -30,7 +30,8 @@
 // spread cyclically so that the shrinking trailing triangle stays balanced:
 // warp w holds columns {w + 16 b, b < 8}, lane l rows {l + 32 s, s < 4},
 // 32 entries a thread (column slots left of the trailing triangle, row
-// slots above it and slot pairs wholly above the diagonal are skipped).
+// slots above it and slot pairs wholly above the diagonal are skipped; the
+// latter take no register).
 // The input and the output pass once through shared memory (stride n + 1,
 // conflict-free), so the global accesses coalesce.  Only the step's vectors
 // l and l * safe go through shared memory, in a ring of 32 buffers, each
@@ -47,6 +48,19 @@
 // per-step overhead of 16 warps keep the owner's partition of the SM busy
 // while it walks the chain.
 //
+// A batch of panels (the Schur solver's diagonal panels of all its blocks,
+// (256, 128, 128) on its large-block path) runs one CTA a panel.  Built as
+// above, one CTA fills an SM (up to 128 registers for 512 threads), so 256
+// panels on 132 SMs took two waves, 2.1x one panel.  Its shared memory
+// (98.3 KB in f32) fits twice in an SM, so the kernel is a template on its
+// warps W and on the CTAs an SM it is built for: a batch of more panels than
+// SMs takes W = 8, two CTAs an SM (64 entries a thread, 105 registers), one
+// wave; fewer take the 16 warps above, alone on their SM.  With 8 warps a
+// warp owns one column in 8 and falls at most 9 steps behind, so the ring
+// of 32 buffers still suffices.  A 16-warp build for two CTAs an SM (64
+// registers) measured slower: two 16-warp chains share the SM's issue.
+// f64 keeps one CTA an SM (its tile and ring take 193 KB).
+//
 // Build: see pyipm_tpu_torch/ops/_build.py (one object per source, linked
 // into one shared library with a plain C interface).
 
@@ -58,12 +72,9 @@
 
 namespace {
 
-constexpr int kPanelThreads = 512;
 constexpr int kWarp = 32;
-constexpr int kWarps = kPanelThreads / kWarp;     // 16
 constexpr int kMaxPanel = 128;
 constexpr int kRowSlots = kMaxPanel / kWarp;      // 4 rows per lane
-constexpr int kColSlots = kMaxPanel / kWarps;     // 8 columns per warp
 constexpr int kBufs = 32;                         // ring of step vectors
 constexpr int kVecs = kBufs * 2 * kMaxPanel;      // each (l, l * safe)
 
@@ -74,20 +85,32 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
+// A pair of row slot s and column slot b that can reach the lower
+// triangle (the others are wholly above the diagonal): known at compile
+// time, so the registers of the other pairs are never touched and take no
+// register.
+template <int W>
+__host__ __device__ constexpr bool live_pair(int s, int b) {
+  return W * b < kWarp * (s + 1);
+}
+
+// A thread's entries of a CTA of W warps: row slot s, column slot b.
+template <typename T, int W>
+using Slots = T[kRowSlots][kMaxPanel / W];
+
 // One step's update of this thread's entries of column slot b, row slots
 // s0.. (the ones below are wholly above the trailing triangle):
 // a_rc -= (l_r * safe) * l_c.  Row slot s holds rows < 32 s + 32, column
-// slot b columns >= 16 b, so for b > 2 s + 1 the pair is wholly above the
-// diagonal and is skipped; the entries above the diagonal or past n that
-// remain get harmless updates that are never read.
-template <typename T>
-__device__ __forceinline__ void update_column(T (&a)[kRowSlots][kColSlots],
-                                              int b, int s0, T lc,
+// slot b columns >= W b, so for W b >= 32 (s + 1) the pair is wholly above
+// the diagonal and is skipped; the entries above the diagonal or past n
+// that remain get harmless updates that are never read.
+template <int W, typename T>
+__device__ __forceinline__ void update_column(Slots<T, W>& a, int b, int s0,
+                                              T lc,
                                               const T (&ls)[kRowSlots]) {
 #pragma unroll
   for (int s = s0; s < kRowSlots; ++s)
-    if (kWarps * b < kWarp * (s + 1))
-      a[s][b] = sub_rn(a[s][b], mul_rn(ls[s], lc));
+    if (live_pair<W>(s, b)) a[s][b] = sub_rn(a[s][b], mul_rn(ls[s], lc));
 }
 
 // A step's vectors in one buffer: l_c of column c at [c], l_r * safe of
@@ -101,18 +124,17 @@ __device__ __forceinline__ void load_lsaf(const T* v, int s0, int lane,
 }
 
 // The step with vectors v (and this thread's l * safe, ls) applied to this
-// warp's columns c > cmin (all in column slot b0 and above, cmin >= 16 b0
+// warp's columns c > cmin (all in column slot b0 and above, cmin >= W b0
 // - 1).
-template <typename T>
-__device__ __forceinline__ void update_step(T (&a)[kRowSlots][kColSlots],
-                                            const T* v,
+template <int W, typename T>
+__device__ __forceinline__ void update_step(Slots<T, W>& a, const T* v,
                                             const T (&ls)[kRowSlots], int b0,
                                             int s0, int warp, int cmin) {
-  if (warp + kWarps * b0 > cmin)
-    update_column(a, b0, s0, v[warp + kWarps * b0], ls);
+  if (warp + W * b0 > cmin)
+    update_column<W>(a, b0, s0, v[warp + W * b0], ls);
 #pragma unroll
-  for (int b = b0 + 1; b < kColSlots; ++b)
-    update_column(a, b, s0, v[warp + kWarps * b], ls);
+  for (int b = b0 + 1; b < kMaxPanel / W; ++b)
+    update_column<W>(a, b, s0, v[warp + W * b], ls);
 }
 
 // Pivot column c, held in column slot b and with its diagonal in row slot
@@ -120,10 +142,9 @@ __device__ __forceinline__ void update_step(T (&a)[kRowSlots][kColSlots],
 // write the step's vectors (0 off the column) into buffer v.  b and sd
 // must be known at compile time (unrolled loop indices), or the register
 // array goes to local memory.
-template <typename T>
-__device__ __forceinline__ void pivot_column(T (&a)[kRowSlots][kColSlots],
-                                             int b, int sd, int c, int n,
-                                             int lane, T* v) {
+template <int W, typename T>
+__device__ __forceinline__ void pivot_column(Slots<T, W>& a, int b, int sd,
+                                             int c, int n, int lane, T* v) {
   const T dc = __shfl_sync(0xffffffffu, a[sd][b], c % kWarp);
   const T safe = (fabs(dc) > T(0)) ? dc : T(1);
 #pragma unroll
@@ -138,8 +159,8 @@ __device__ __forceinline__ void pivot_column(T (&a)[kRowSlots][kColSlots],
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kPanelThreads, 1)
+template <typename T, int W, int kPerSm>
+__global__ void __launch_bounds__(W * kWarp, kPerSm)
 panel_ldlt_kernel(const T* __restrict__ A, T* __restrict__ L,
                   T* __restrict__ d, int n) {
   // this CTA's panel of the batch
@@ -150,42 +171,44 @@ panel_ldlt_kernel(const T* __restrict__ A, T* __restrict__ L,
   auto* bars = reinterpret_cast<unsigned long long*>(smem_raw);  // (32,)
   T* vec = reinterpret_cast<T*>(smem_raw + kBufs * sizeof(*bars));
   T* s = vec + kVecs;                      // (n, n + 1): A in, L and d out
+  constexpr int kColSlots = kMaxPanel / W;
+  constexpr int kThreads = W * kWarp;
   const int ld = n + 1;
   const int tid = threadIdx.x;
   const int warp = tid / kWarp;
   const int lane = tid % kWarp;
 
   if (tid < kBufs) mbar_init(bars + tid, kWarp);
-  for (int r = warp; r < n; r += kWarps)
+  for (int r = warp; r < n; r += W)
     for (int c = lane; c < n; c += kWarp) s[r * ld + c] = A[r * n + c];
-  for (int t = tid; t < kVecs; t += kPanelThreads) vec[t] = T(0);
+  for (int t = tid; t < kVecs; t += kThreads) vec[t] = T(0);
   __syncthreads();
 
-  T a[kRowSlots][kColSlots];
+  Slots<T, W> a;
 #pragma unroll
   for (int sl = 0; sl < kRowSlots; ++sl)
 #pragma unroll
     for (int b = 0; b < kColSlots; ++b) {
-      const int r = lane + kWarp * sl, c = warp + kWarps * b;
-      a[sl][b] = (r < n && c < n) ? s[r * ld + c] : T(0);
+      const int r = lane + kWarp * sl, c = warp + W * b;
+      if (live_pair<W>(sl, b)) a[sl][b] = (r < n && c < n) ? s[r * ld + c] : T(0);
     }
 
-  // Pass nx pivots column nx = 16 b0 + w0, held by warp w0 in column slot
-  // b0, its diagonal in row slot s0 = b0 / 2.  Every warp waits for the vectors
-  // of step nx - 1 (buffer (nx - 1) % 32); the owner applies them to
-  // column nx, pivots, publishes step nx and only then updates its other
+  // Pass nx pivots column nx = W b0 + w0, held by warp w0 in column slot
+  // b0, its diagonal in row slot s0 = W b0 / 32.  Every warp waits for the
+  // vectors of step nx - 1 (buffer (nx - 1) % 32); the owner applies them
+  // to column nx, pivots, publishes step nx and only then updates its other
   // columns, so its path from one step's vectors to the next is one
   // column's update and the pivot.  No CTA barrier: a warp waits only for
-  // the vectors it reads, and none falls more than 17 steps behind (it
-  // owns one pass in 16), so a ring of 32 buffers is never overwritten
+  // the vectors it reads, and none falls more than W + 1 steps behind (it
+  // owns one pass in W), so a ring of 32 buffers is never overwritten
   // while read.  Columns of slots below b0 and rows of row slots below s0
   // are done, so b0, an unrolled index, bounds every loop
   // statically and every register index is static.
 #pragma unroll
   for (int b0 = 0; b0 < kColSlots; ++b0) {
-    const int s0 = kWarps * b0 / kWarp;      // row slot of the diagonal
-    for (int w0 = 0; w0 < kWarps; ++w0) {
-      const int nx = kWarps * b0 + w0;
+    const int s0 = W * b0 / kWarp;      // row slot of the diagonal
+    for (int w0 = 0; w0 < W; ++w0) {
+      const int nx = W * b0 + w0;
       if (nx >= n) break;
       const int j = nx - 1;                          // the step applied
       const T* cur = vec + (j & (kBufs - 1)) * 2 * kMaxPanel;
@@ -195,12 +218,12 @@ panel_ldlt_kernel(const T* __restrict__ A, T* __restrict__ L,
         load_lsaf(cur, s0, lane, ls);
       }
       if (warp == w0) {
-        if (nx > 0) update_column(a, b0, s0, cur[nx], ls);
-        pivot_column(a, b0, s0, nx, n, lane,
+        if (nx > 0) update_column<W>(a, b0, s0, cur[nx], ls);
+        pivot_column<W>(a, b0, s0, nx, n, lane,
                      vec + (nx & (kBufs - 1)) * 2 * kMaxPanel);
         mbar_arrive(bars + (nx & (kBufs - 1)));
       }
-      if (nx > 0) update_step(a, cur, ls, b0, s0, warp, nx);
+      if (nx > 0) update_step<W>(a, cur, ls, b0, s0, warp, nx);
     }
   }
   __syncthreads();
@@ -210,14 +233,14 @@ panel_ldlt_kernel(const T* __restrict__ A, T* __restrict__ L,
   for (int sl = 0; sl < kRowSlots; ++sl)
 #pragma unroll
     for (int b = 0; b < kColSlots; ++b) {
-      const int r = lane + kWarp * sl, c = warp + kWarps * b;
-      if (r < n && c <= r) s[r * ld + c] = a[sl][b];
+      const int r = lane + kWarp * sl, c = warp + W * b;
+      if (live_pair<W>(sl, b) && r < n && c <= r) s[r * ld + c] = a[sl][b];
     }
   __syncthreads();
-  for (int r = warp; r < n; r += kWarps)
+  for (int r = warp; r < n; r += W)
     for (int c = lane; c < n; c += kWarp)
       L[r * n + c] = (r > c) ? s[r * ld + c] : (r == c ? T(1) : T(0));
-  for (int t = tid; t < n; t += kPanelThreads) d[t] = s[t * ld + t];
+  for (int t = tid; t < n; t += kThreads) d[t] = s[t * ld + t];
 }
 
 template <typename T>
@@ -227,11 +250,13 @@ constexpr size_t panel_smem(int n) {
 }
 
 // The shared-memory opt-in belongs to the function on one device.  It is set
-// once per device and type, to the largest panel's size, so that the launches
-// of a factorization (one per panel) make no driver call of their own.
+// once per device, type and variant, to the largest panel's size (and, for
+// two panels an SM, the SM's split of L1 and shared memory to the most
+// shared memory), so that the launches of a factorization (one per panel
+// step) make no driver call of their own.
 constexpr int kMaxDevices = 64;
 
-template <typename T>
+template <typename T, int W, int kPerSm>
 cudaError_t opt_in_smem() {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
@@ -239,25 +264,60 @@ cudaError_t opt_in_smem() {
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
     return cudaSuccess;
-  err = cudaFuncSetAttribute(panel_ldlt_kernel<T>,
+  err = cudaFuncSetAttribute(panel_ldlt_kernel<T, W, kPerSm>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)panel_smem<T>(kMaxPanel));
+  if (err == cudaSuccess && kPerSm > 1)
+    err = cudaFuncSetAttribute(panel_ldlt_kernel<T, W, kPerSm>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess && dev < kMaxDevices)
     done[dev].store(true, std::memory_order_release);
   return err;
 }
 
-template <typename T>
-int launch_panel(const void* A, void* L, void* d, int n, int batch,
-                 void* stream) {
-  if (n <= 0 || n > kMaxPanel || batch <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = opt_in_smem<T>();
+template <typename T, int W, int kPerSm>
+int launch_as(const void* A, void* L, void* d, int n, int batch,
+              void* stream) {
+  cudaError_t err = opt_in_smem<T, W, kPerSm>();
   if (err != cudaSuccess) return (int)err;
-  panel_ldlt_kernel<T><<<batch, kPanelThreads, panel_smem<T>(n),
-                         (cudaStream_t)stream>>>(
+  panel_ldlt_kernel<T, W, kPerSm><<<batch, W * kWarp, panel_smem<T>(n),
+                                    (cudaStream_t)stream>>>(
       static_cast<const T*>(A), static_cast<T*>(L), static_cast<T*>(d), n);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int W, int kPerSm>
+int residency_as(int* out) {
+  cudaError_t err = opt_in_smem<T, W, kPerSm>();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, panel_ldlt_kernel<T, W, kPerSm>, W * kWarp,
+      panel_smem<T>(kMaxPanel));
+}
+
+// The variants by `per_sm`: 1, one panel an SM (16 warps, up to 128
+// registers a thread); 2, two panels an SM (8 warps, 128 registers), f32
+// only: f64's tile and ring do not fit twice in an SM's shared memory.
+template <typename T>
+int launch_panel(const void* A, void* L, void* d, int n, int batch,
+                 int per_sm, void* stream) {
+  if (n <= 0 || n > kMaxPanel || batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (per_sm == 1) return launch_as<T, 16, 1>(A, L, d, n, batch, stream);
+  if constexpr (sizeof(T) == 4)
+    if (per_sm == 2) return launch_as<T, 8, 2>(A, L, d, n, batch, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The variant's CTAs resident an SM at n = 128 (the occupancy calculator's
+// answer, attributes set), into out[0].
+template <typename T>
+int panel_residency(int per_sm, int* out) {
+  if (per_sm == 1) return residency_as<T, 16, 1>(out);
+  if constexpr (sizeof(T) == 4)
+    if (per_sm == 2) return residency_as<T, 8, 2>(out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -265,13 +325,21 @@ int launch_panel(const void* A, void* L, void* d, int n, int batch,
 extern "C" {
 
 int pyipm_panel_ldlt_f32(const void* A, void* L, void* d, int n, int batch,
-                         void* stream) {
-  return launch_panel<float>(A, L, d, n, batch, stream);
+                         int per_sm, void* stream) {
+  return launch_panel<float>(A, L, d, n, batch, per_sm, stream);
 }
 
 int pyipm_panel_ldlt_f64(const void* A, void* L, void* d, int n, int batch,
-                         void* stream) {
-  return launch_panel<double>(A, L, d, n, batch, stream);
+                         int per_sm, void* stream) {
+  return launch_panel<double>(A, L, d, n, batch, per_sm, stream);
+}
+
+int pyipm_panel_ldlt_residency_f32(int per_sm, int* out) {
+  return panel_residency<float>(per_sm, out);
+}
+
+int pyipm_panel_ldlt_residency_f64(int per_sm, int* out) {
+  return panel_residency<double>(per_sm, out);
 }
 
 }  // extern "C"

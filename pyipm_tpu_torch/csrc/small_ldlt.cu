@@ -84,7 +84,9 @@
 // L_ij read from the staged tile (a column read in the forward pass, a row
 // read in the backward pass, both free of bank conflicts).  No reduction,
 // no barrier, no global load inside the chain.  An optional row scale is
-// folded in: x = s * solve(s * b).
+// folded in: x = s * solve(s * b).  Above n = 64 (ldlt_solve_kernel_wide)
+// each warp stages only its own factor's strict lower triangle, packed,
+// and waits for no other warp.
 //
 // Numerics.  The factorization equals its plain PyTorch version
 // (pyipm_tpu_torch/ops/small_ldlt.py) bit for bit: the same right-looking
@@ -613,14 +615,176 @@ ldlt_solve_kernel(const T* __restrict__ L, const T* __restrict__ d,
   }
 }
 
+// ---- the solve at 64 < n <= 128: the wide solve kernel ----
+//
+// A warp an instance, as ldlt_solve_kernel, with the same arithmetic in the
+// same order, so bit for bit the same x; what changes is the staging and the
+// launch.  At these sizes the tile of row stride n | 1 took 37.6 KB an
+// instance at n = 97 in f32, so a CTA shrank to one warp, six an SM, each
+// loading its whole tile (the zeros above the diagonal included) before its
+// chain began.  Here each warp stages only the strict lower triangle of its
+// own L, packed (row r at r (r - 1) / 2, r >= 1: 18.6 KB at n = 97, twelve
+// instances an SM), and waits for no other warp: no CTA barrier, so while
+// some warps of an SM stage, others run their chains.  Row r's entries
+// 0 .. r-1 start wherever r n falls, so the warp reads the 16-byte words
+// that cover each row (a word a lane, kDepth words a lane in flight) and
+// scatters their entries below the diagonal into the packing.  The forward
+// pass reads entry (i, j) at i (i - 1) / 2 + j across the lanes i: lanes l
+// and l' share a bank only for {l, l'} = {0, 1} at i >= 32 (triangular
+// numbers mod 32), a two-way conflict; the backward pass reads row j,
+// lane i at j (j - 1) / 2 + i, consecutive.  Two ways of staging by
+// cp.async (no registers, every copy in flight at once) measured slower
+// overall on an H100: 4-byte copies straight into the packing stage at
+// well under the memory's rate; 16-byte copies need each row at its own
+// 16-byte offset in shared memory, which costs room (10 instances an SM at
+// n = 97) and, at n = 0 mod 4, where every row starts on the same offset,
+// 4-way bank conflicts on the forward pass's column reads.  What bounds
+// this design: at n = 97, 2,048 instances are 15.5 an SM, 12 fit, so an
+// SM runs two rounds of staging and chain (2n = 194 shuffle steps).
+
+// Entries of a warp's region: the packed triangle, rounded to 16 bytes.
+template <typename T>
+__host__ __device__ constexpr int wide_solve_words(int n) {
+  return (n * (n - 1) / 2 + 16 / (int)sizeof(T) - 1) &
+         ~(16 / (int)sizeof(T) - 1);
+}
+
+// x = s * (L^-T diag(d)^-1 L^-1 (s * b)) for the instance of each warp,
+// 64 < n <= 32 NT.  A warp past the batch end leaves at once: nothing waits
+// for another warp.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+ldlt_solve_kernel_wide(const T* __restrict__ L, const T* __restrict__ d,
+                       const T* __restrict__ b, const T* __restrict__ scale,
+                       T* __restrict__ x, int B, int n) {
+  using Word = typename Word16<T>::type;
+  constexpr int V = sizeof(Word) / sizeof(T);
+  constexpr int kDepth = 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const long long inst =
+      (long long)blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (inst >= B) return;
+  T* tri = reinterpret_cast<T*>(smem_raw) + warp * wide_solve_words<T>(n);
+
+  // b, the scale and d, in flight while the factor is staged
+  const long long row = inst * n;
+  T y[NT], sc[NT], dv[NT];
+  int pr[NT];  // where row i of the triangle starts (row 0 past n)
+#pragma unroll
+  for (int u = 0; u < NT; ++u) {
+    const int i = lane + kWarp * u;
+    const bool in = i < n;
+    sc[u] = (scale && in) ? scale[row + i] : T(1);
+    y[u] = in ? b[row + i] : T(0);
+    if (scale) y[u] = mul_rn(sc[u], y[u]);
+    dv[u] = in ? d[row + i] : T(1);
+    pr[u] = in ? i * (i - 1) / 2 : 0;
+  }
+  // Word g of row r: from the 16-byte boundary at or before the row's
+  // start (its entry offset `sh` back), entries V g - sh .. of the row;
+  // q = the words that cover entries 0 .. r-1.  The lanes take the rows'
+  // words in order, a word a lane.
+  {
+    const T* Lg = L + inst * n * n;
+    const int shift0 =
+        (int)(reinterpret_cast<uintptr_t>(Lg) % 16 / sizeof(T));
+    int r = 1, g = lane, sh = (shift0 + n) & (V - 1);
+    int q = (sh + 1 + V - 1) / V;
+    auto next_row = [&]() {
+      while (r < n && g >= q) {
+        g -= q;
+        ++r;
+        sh = (shift0 + r * n) & (V - 1);
+        q = (sh + r + V - 1) / V;
+      }
+    };
+    next_row();
+    while (r < n) {
+      Word w[kDepth];
+      int wr[kDepth], wc[kDepth];  // the word's row and first column
+#pragma unroll
+      for (int t = 0; t < kDepth; ++t) {
+        wr[t] = r;
+        wc[t] = V * g - sh;
+        if (r < n) w[t] = __ldg(reinterpret_cast<const Word*>(
+                                    Lg + r * n - sh) + g);
+        g += kWarp;
+        next_row();
+      }
+#pragma unroll
+      for (int t = 0; t < kDepth; ++t) {
+        const T* v = reinterpret_cast<const T*>(&w[t]);
+        T* dst = tri + wr[t] * (wr[t] - 1) / 2;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const int c = wc[t] + k;
+          if (wr[t] < n && c >= 0 && c < wr[t]) dst[c] = v[k];
+        }
+      }
+    }
+  }
+  __syncwarp();
+
+  // forward: after steps 0 .. j-1 entry j is final; broadcast it and
+  // subtract L_ij y_j from every later entry i.  Entries of a later slot
+  // (u > t) are all below j: no test.  Entries past n compute on the
+  // region's first words, are never broadcast and never stored.
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int steps = min(kWarp, n - kWarp * t);
+#pragma unroll 4
+    for (int jj = 0; jj < steps; ++jj) {
+      const int j = kWarp * t + jj;
+      const T yj = __shfl_sync(kFull, y[t], jj);
+      if (lane > jj) y[t] = fnma(tri[pr[t] + j], yj, y[t]);
+#pragma unroll
+      for (int u = t + 1; u < NT; ++u)
+        y[u] = fnma(tri[pr[u] + j], yj, y[u]);
+    }
+  }
+  // zero-guarded diagonal scale
+#pragma unroll
+  for (int u = 0; u < NT; ++u)
+    if (lane + kWarp * u < n)
+      y[u] = y[u] / ((fabs(dv[u]) > T(0)) ? dv[u] : T(1));
+  // backward: entry j is final once steps n-1 .. j+1 are done; broadcast it
+  // and subtract L_ji x_j from every earlier entry i (all of an earlier
+  // slot, u < t: no test)
+#pragma unroll
+  for (int t = NT - 1; t >= 0; --t) {
+    const int steps = min(kWarp, n - kWarp * t);
+#pragma unroll 4
+    for (int jj = steps - 1; jj >= 0; --jj) {
+      const int j = kWarp * t + jj;
+      const T xj = __shfl_sync(kFull, y[t], jj);
+      const T* rowj = tri + j * (j - 1) / 2;
+      if (lane < jj) y[t] = fnma(rowj[lane + kWarp * t], xj, y[t]);
+#pragma unroll
+      for (int u = 0; u < t; ++u)
+        y[u] = fnma(rowj[lane + kWarp * u], xj, y[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NT; ++u) {
+    const int i = lane + kWarp * u;
+    if (i < n) x[row + i] = scale ? mul_rn(sc[u], y[u]) : y[u];
+  }
+}
+
 // The opt-in to more than 48 KB of dynamic shared memory belongs to a
 // kernel on one device: set once per device (`done`, one static array per
-// kernel instantiation) to `bytes`, the most the kernel ever asks for.
+// kernel instantiation) to `bytes`, the most the kernel ever asks for;
+// with `max_carveout` also the SM's split of L1 and shared memory to the
+// most shared memory, so that as many CTAs stay resident as their shared
+// memory allows.
 constexpr int kMaxDevices = 64;
 constexpr size_t kOptInAbove = 48 * 1024;
 
 template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, std::atomic<bool>* done, size_t bytes) {
+cudaError_t opt_in_smem(Kernel kernel, std::atomic<bool>* done, size_t bytes,
+                        bool max_carveout = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -628,13 +792,17 @@ cudaError_t opt_in_smem(Kernel kernel, std::atomic<bool>* done, size_t bytes) {
     return cudaSuccess;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && max_carveout)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess && dev < kMaxDevices)
     done[dev].store(true, std::memory_order_release);
   return err;
 }
 
-// Shared memory a CTA of the batched kernels may take so that several fit
-// on an SM; an instance larger than this gets a CTA (of one warp) to itself.
+// Shared memory a CTA of the batched kernels (n <= 64) may take so that
+// several fit on an SM.
 constexpr size_t kCtaSmem = 72 * 1024;
 
 // Warps of a batched CTA: four, halved until the CTA's shared memory (at
@@ -709,13 +877,74 @@ int launch_solve_as(const T* L, const T* d, const T* b, const T* scale, T* x,
   if (smem > kOptInAbove) {
     static std::atomic<bool> done[kMaxDevices];
     cudaError_t err = opt_in_smem(
-        ldlt_solve_kernel<T, NT, W>, done,
-        std::max(kCtaSmem, (size_t)kMaxN * (kMaxN | 1) * sizeof(T)));
+        ldlt_solve_kernel<T, NT, W>, done, kCtaSmem);
     if (err != cudaSuccess) return (int)err;
   }
   ldlt_solve_kernel<T, NT, W><<<(B + ipb - 1) / ipb, warps * kWarp, smem,
                                 stream>>>(L, d, b, scale, x, B, n);
   return (int)cudaGetLastError();
+}
+
+// Hopper's SM: 228 KB of shared memory, of which each resident CTA takes
+// 1 KB for the system; at most 32 CTAs and 64 warps an SM, 227 KB a CTA.
+constexpr size_t kSmSmem = 228 * 1024;
+constexpr size_t kCtaReserved = 1024;
+constexpr size_t kCtaSmemMax = 227 * 1024;
+
+// Warps of a wide-solve CTA (4, 2 or 1, at `per_warp` bytes a warp): the
+// most warps resident an SM, the larger CTA on a tie.
+int wide_solve_warps(size_t per_warp) {
+  int best = 1, resident = 0;
+  for (int w = kThreads / kWarp; w >= 1; w /= 2) {
+    const size_t cta = w * per_warp;
+    if (cta > kCtaSmemMax) continue;
+    const int ctas = std::min((int)(kSmSmem / (cta + kCtaReserved)),
+                              std::min(32, 64 / w));
+    if (ctas * w > resident) {
+      resident = ctas * w;
+      best = w;
+    }
+  }
+  return best;
+}
+
+template <typename T, int NT>
+cudaError_t prepare_solve_wide() {
+  static std::atomic<bool> done[kMaxDevices];
+  return opt_in_smem(ldlt_solve_kernel_wide<T, NT>, done, kCtaSmemMax, true);
+}
+
+template <typename T, int NT>
+int launch_solve_wide(const T* L, const T* d, const T* b, const T* scale,
+                      T* x, int B, int n, cudaStream_t stream) {
+  cudaError_t err = prepare_solve_wide<T, NT>();
+  if (err != cudaSuccess) return (int)err;
+  const size_t per_warp = (size_t)wide_solve_words<T>(n) * sizeof(T);
+  const int warps = wide_solve_warps(per_warp);
+  ldlt_solve_kernel_wide<T, NT><<<(B + warps - 1) / warps, warps * kWarp,
+                                  warps * per_warp, stream>>>(
+      L, d, b, scale, x, B, n);
+  return (int)cudaGetLastError();
+}
+
+// The wide solve's launch at size n: out[0] warps a CTA, out[1] CTAs
+// resident an SM (the occupancy calculator's answer, attributes set).
+template <typename T, int NT>
+int residency_solve_wide(int n, int* out) {
+  cudaError_t err = prepare_solve_wide<T, NT>();
+  if (err != cudaSuccess) return (int)err;
+  const size_t per_warp = (size_t)wide_solve_words<T>(n) * sizeof(T);
+  out[0] = wide_solve_warps(per_warp);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 1, ldlt_solve_kernel_wide<T, NT>, out[0] * kWarp,
+      out[0] * per_warp);
+}
+
+template <typename T>
+int solve_residency(int n, int* out) {
+  if (n <= 64 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  return n <= 96 ? residency_solve_wide<T, 3>(n, out)
+                 : residency_solve_wide<T, 4>(n, out);
 }
 
 template <typename T>
@@ -733,9 +962,10 @@ int launch_solve(const void* L_, const void* d_, const void* b_,
   if (n <= 16) return PYIPM_SOLVE_AS(1, 16);
   if (n <= 32) return PYIPM_SOLVE_AS(1, 32);
   if (n <= 64) return PYIPM_SOLVE_AS(2, 32);
-  if (n <= 96) return PYIPM_SOLVE_AS(3, 32);
-  return PYIPM_SOLVE_AS(4, 32);
 #undef PYIPM_SOLVE_AS
+  if (n <= 96)
+    return launch_solve_wide<T, 3>(L, d, b, scale, x, B, n, stream);
+  return launch_solve_wide<T, 4>(L, d, b, scale, x, B, n, stream);
 }
 
 }  // namespace
@@ -763,6 +993,16 @@ int pyipm_ldlt_solve_f64(const void* L, const void* d, const void* b,
                          const void* scale, void* x, int B, int n,
                          void* stream) {
   return launch_solve<double>(L, d, b, scale, x, B, n, stream);
+}
+
+// The wide solve's launch at 64 < n <= 128: out[0] warps a CTA, out[1]
+// CTAs resident an SM.
+int pyipm_ldlt_solve_residency_f32(int n, int* out) {
+  return solve_residency<float>(n, out);
+}
+
+int pyipm_ldlt_solve_residency_f64(int n, int* out) {
+  return solve_residency<double>(n, out);
 }
 
 const char* pyipm_error_string(int code) {

@@ -102,7 +102,9 @@ def load() -> ctypes.CDLL:
     signatures = {
         "pyipm_ldlt_factor": [P, P, P, I, I, P],
         "pyipm_ldlt_solve": [P, P, P, P, P, I, I, P],
-        "pyipm_panel_ldlt": [P, P, P, I, I, P],
+        "pyipm_ldlt_solve_residency": [I, P],
+        "pyipm_panel_ldlt": [P, P, P, I, I, I, P],
+        "pyipm_panel_ldlt_residency": [I, P],
         "pyipm_bwd_sweep_blocks": [P, P, P, P, P, P, I, I, P],
         "pyipm_bwd_sweep_panels": [P, P, P, P, P, I, P],
     }
@@ -128,6 +130,20 @@ def launch(entry: str, what: str, dtype, device, *args) -> None:
     if code != 0:
         msg = lib.pyipm_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def query(entry: str, what: str, dtype, device, *args, count: int = 1):
+    """Call the library's ``{entry}_f32`` or ``_f64`` with ``args`` and an
+    int array of ``count`` entries, on ``device``; raise on a CUDA error.
+    Returns the array's values (a kernel's launch configuration)."""
+    lib = load()
+    out = (ctypes.c_int * count)()
+    with torch.cuda.device(device):
+        code = getattr(lib, f"{entry}_{DTYPES[dtype]}")(*args, out)
+    if code != 0:
+        msg = lib.pyipm_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+    return tuple(out)
 
 
 def check_operand(name, t, shape, dtype, device):

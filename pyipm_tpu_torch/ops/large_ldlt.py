@@ -5,7 +5,9 @@
   - :func:`panel_ldlt` — LDL^T of one n x n diagonal panel (n <= 128), or
     of a batch of them in one launch, counterpart of the Pallas
     ``_panel_kernel`` / ``panel_ldlt`` (pyipm_tpu/ops/pallas_ldlt.py:198-245;
-    the JAX package batches it under ``vmap``);
+    the JAX package batches it under ``vmap``); one kernel code in two
+    variants, one panel an SM or two (:func:`panels_per_sm` picks by the
+    batch and the card's SM count);
   - :func:`bwd_sweep_panels` / :func:`bwd_sweep_blocks` — the backward
     substitution L^T x = z from the padded factor and the inverses of its
     128-wide panels or of its superblocks, counterparts of the Pallas
@@ -26,6 +28,7 @@ is no multiple of 128 raises.
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
@@ -77,9 +80,31 @@ def bwd_sweep_ref(Lp, z, inv):
 
 
 # ----------------------------------------------------------------------
+def panels_per_sm(B: int, sm_count: int, dtype) -> int:
+    """The panel kernel's variant for a batch of B panels: 2 (two panels an
+    SM, 8 warps each) when the batch has more panels than the card has SMs,
+    so that it runs in half the waves; else 1 (one panel an SM in 16 warps:
+    a single panel is bound by its 128-step chain).  Only float32 has the
+    two-panel variant (float64's shared memory fits one)."""
+    return 2 if dtype == torch.float32 and B > sm_count else 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def panel_residency(per_sm: int, dtype, device) -> int:
+    """CTAs of the ``per_sm`` variant resident an SM at n = 128, by the
+    occupancy calculator on ``device`` (a card)."""
+    return _build.query("pyipm_panel_ldlt_residency", "panel_ldlt", dtype,
+                        device, per_sm)[0]
+
+
 def panel_ldlt(A):
     """(n, n) -> (L, d), or a batch (B, n, n) -> (L (B, n, n), d (B, n)) in
-    one launch, n <= 128.  CUDA: the hand-written kernel; CPU: plain."""
+    one launch, n <= 128.  CUDA: the hand-written kernel, the variant by
+    :func:`panels_per_sm`; CPU: plain."""
     if A.dim() not in (2, 3) or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"A must be (n, n) or (B, n, n), got "
                          f"{tuple(A.shape)}")
@@ -96,8 +121,9 @@ def panel_ldlt(A):
     d = A.new_empty(A.shape[:-1])
     if B == 0:
         return L, d
+    per_sm = panels_per_sm(B, sm_count(A.device), A.dtype)
     _build.launch("pyipm_panel_ldlt", "panel_ldlt", A.dtype, A.device,
-                  A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B)
+                  A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B, per_sm)
     LAUNCHES["panel_ldlt"] += 1
     LAUNCHES_BY_B["panel_ldlt", B] += 1
     return L, d

@@ -8,7 +8,11 @@ Counterpart of ``ldlt_factor_small`` / ``ldlt_solve_small`` in
 The factor kernel has two designs by size: a warp per instance up to n =
 64, and above it (the application fleets' n = 65 to 97, the Schur blocks,
 the normal matrices up to 128) a CTA of warps per instance with the lower
-triangle in registers; both are bitwise equal to the plain version.
+triangle in registers; both are bitwise equal to the plain version.  The
+solve kernel runs a warp per instance at every size; up to n = 64 a CTA
+stages its instances' whole factors, above it each warp stages only its
+factor's strict lower triangle, packed, and waits for no other warp
+(:func:`solve_residency` gives that launch's shape on a card).
 
 The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
@@ -89,6 +93,14 @@ def ldlt_factor_small(A):
     LAUNCHES["factor"] += 1
     LAUNCHES_BY_N["factor", n] += 1
     return L, d
+
+
+def solve_residency(n: int, dtype, device):
+    """The solve kernel's launch at 64 < n <= 128 on ``device`` (a card):
+    (warps a CTA, CTAs resident an SM), the latter by the occupancy
+    calculator; a warp runs one instance."""
+    return _build.query("pyipm_ldlt_solve_residency", "ldlt_solve_small",
+                        dtype, device, n, count=2)
 
 
 def ldlt_solve_small(L, d, b, scale=None):

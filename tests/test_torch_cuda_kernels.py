@@ -147,6 +147,56 @@ def test_solve_kernel_unaligned_factors(card, dtype):
     assert torch.equal(x, sl.ldlt_solve_small(L, d, b)[1:])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [65, 67, 80, 96, 97, 128])
+def test_solve_kernel_wide(card, n, dtype, scaled):
+    """The wide solve (64 < n <= 128: a warp an instance, its factor's
+    strict lower triangle staged packed) at phase 16's sizes and the bucket
+    edges, on the batch slice [1:] of 2,049 instances (off a 16-byte
+    boundary at odd n), half of them indefinite: against the plain version,
+    bitwise what the same instances give in the whole batch and over 20
+    calls, with ``scale`` bitwise the products taken outside; one counted
+    launch a call, counted by n."""
+    rng = np.random.default_rng(3000 + n)
+    dt = getattr(torch, dtype)
+    A = _rand_sym(rng, 2049, n)
+    A[::2] -= (n / 2) * np.eye(n)
+    A = torch.as_tensor(A, dtype=dt, device=card)
+    b = torch.as_tensor(rng.standard_normal((2049, n)), dtype=dt,
+                        device=card)
+    sc = torch.as_tensor(rng.uniform(0.25, 4.0, (2049, n)), dtype=dt,
+                         device=card) if scaled else None
+    L, d = sl.ldlt_factor_small(A)
+    Ls, ds, bs = L[1:], d[1:], b[1:]
+    scs = None if sc is None else sc[1:]
+    n0, by_n0 = sl.LAUNCHES["solve"], sl.LAUNCHES_BY_N["solve", n]
+    xs = [sl.ldlt_solve_small(Ls, ds, bs, scale=scs) for _ in range(21)]
+    assert sl.LAUNCHES["solve"] == n0 + 21
+    assert sl.LAUNCHES_BY_N["solve", n] == by_n0 + 21
+    whole = sl.ldlt_solve_small(L, d, b, scale=sc)
+    xr = sl.ldlt_solve_small_ref(Ls, ds, bs, scs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(xs[0], x) for x in xs[1:])
+    assert torch.equal(xs[0], whole[1:])
+    if scaled:
+        assert torch.equal(xs[0], scs * sl.ldlt_solve_small(Ls, ds,
+                                                            scs * bs))
+        _assert_solve_close(Ls, ds, scs * bs, xs[0] / scs, xr / scs, dtype)
+    else:
+        _assert_solve_close(Ls, ds, bs, xs[0], xr, dtype)
+
+
+@pytest.mark.cuda
+def test_solve_kernel_wide_residency(card):
+    """More instances resident an SM than the single-warp CTAs of the
+    staged full tile allowed (6 at n = 97 in f32), at every wide size."""
+    for n, least in ((65, 24), (80, 16), (97, 12), (128, 6)):
+        warps, ctas = sl.solve_residency(n, torch.float32, card)
+        assert warps * ctas >= least, (n, warps, ctas)
+
+
 def _same_bits(a, b):
     """Bitwise equal, NaN payloads aside: NaN at the same entries, every
     other entry with the same bits (so -0.0 differs from 0.0)."""
@@ -307,6 +357,41 @@ def test_panel_kernel_bitwise_equal_to_plain(card, n, dtype, kind):
     torch.cuda.synchronize()
     assert ll.LAUNCHES["panel_ldlt"] == n0 + 1
     assert torch.equal(L, Lr) and torch.equal(d, dr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("B", [1, 131, 132, 133, 256, 264])
+def test_panel_kernel_batched_bitwise(card, B, dtype):
+    """A batch of 128-panels (random, indefinite and exact-zero-pivot) at
+    the edges of one and two panels an SM: bitwise equal to the plain
+    version panel by panel, one counted launch by B, whichever variant
+    ``panels_per_sm`` picks."""
+    rng = np.random.default_rng(B)
+    A = _rand_sym(rng, B, 128)
+    A[1::3] = _indef_panel(rng, 128)
+    A[2::7] = _zero_pivot_panel(128)
+    A = torch.as_tensor(A, dtype=getattr(torch, dtype), device=card)
+    n0, by_b0 = ll.LAUNCHES["panel_ldlt"], ll.LAUNCHES_BY_B["panel_ldlt", B]
+    L, d = ll.panel_ldlt(A)
+    Lr, dr = ll.panel_ldlt_ref(A)
+    torch.cuda.synchronize()
+    assert ll.LAUNCHES["panel_ldlt"] == n0 + 1
+    assert ll.LAUNCHES_BY_B["panel_ldlt", B] == by_b0 + 1
+    assert torch.equal(L, Lr) and torch.equal(d, dr)
+    for i in (0, B // 2, B - 1):
+        Li, di = ll.panel_ldlt_ref(A[i])
+        assert torch.equal(L[i], Li) and torch.equal(d[i], di)
+
+
+@pytest.mark.cuda
+def test_panel_kernel_two_panels_an_sm(card):
+    """The two-panel variant keeps two 128-panels resident an SM in f32,
+    and a batch of more panels than SMs takes it."""
+    assert ll.panel_residency(2, torch.float32, card) >= 2
+    assert ll.panel_residency(1, torch.float32, card) >= 1
+    sms = ll.sm_count(card)
+    assert ll.panels_per_sm(sms + 1, sms, torch.float32) == 2
 
 
 @pytest.mark.cuda

@@ -116,6 +116,36 @@ def test_panel_wrapper_checks():
         ll.panel_ldlt(torch.eye(8, dtype=torch.float16))
 
 
+@pytest.mark.parametrize("B,sms,dtype,per_sm", [
+    (1, 132, torch.float32, 1),
+    (131, 132, torch.float32, 1),
+    (132, 132, torch.float32, 1),
+    (133, 132, torch.float32, 2),
+    (256, 132, torch.float32, 2),
+    (264, 132, torch.float32, 2),
+    (265, 132, torch.float32, 2),
+    (256, 132, torch.float64, 1),
+    (115, 114, torch.float32, 2),
+    (114, 114, torch.float32, 1),
+])
+def test_panels_per_sm_by_batch_and_sm_count(B, sms, dtype, per_sm):
+    """The panel kernel's variant: two panels an SM only for float32
+    batches of more panels than the card has SMs."""
+    assert ll.panels_per_sm(B, sms, dtype) == per_sm
+
+
+def test_panel_wrapper_on_cpu_is_plain_at_any_batch(rng):
+    """A CPU batch takes the plain version whatever its size, launching
+    nothing and asking no card for its SM count."""
+    A = torch.as_tensor(np.repeat(_rand_sym(rng, 8, 2.0)[None], 133, 0),
+                        dtype=torch.float32)
+    n0 = dict(ll.LAUNCHES)
+    L, d = ll.panel_ldlt(A)
+    Lr, dr = ll.panel_ldlt_ref(A)
+    assert torch.equal(L, Lr) and torch.equal(d, dr)
+    assert ll.LAUNCHES == n0
+
+
 # ----------------------------------------------------------------------
 # kernels 4 and 5: the backward sweeps
 def _jax_panel_factors(rng, n, dtype, group=8):
