@@ -75,9 +75,10 @@ Phases, each raising on failure:
      regularize) against the same call on the plain versions (shifts,
      retries bitwise; backward error no worse); kernel 1 bitwise at
      (65536, 16) and (16384, 17), the batched kernel 3 at B = 1, 131,
-     132, 133, 256 and 264 (random, indefinite and exact-zero-pivot
-     panels, either variant of ``panels_per_sm``); its two-panel variant
-     resident two an SM; their timings;
+     132, 133, 256, 264 and phase 26's 1,024, f32 and f64 (random,
+     indefinite and exact-zero-pivot panels, either variant of
+     ``panels_per_sm``); its two-panel variant resident two an SM; their
+     timings (kernel 3 at B = 256 and 1,024);
  20. not run: the million-variable separable NLP (K = 4096, d = 256,
      mc = 8; the unrolled branch, no kernel) in float32 ends at signal -1,
      its stationarity norm stalled at the float32 error of its own
@@ -101,10 +102,24 @@ Phases, each raising on failure:
      L-BFGS(8), float32: signal 1 or 2, no kernel launched (none lies on
      this path), the peak allocation under 2 GiB; the same family at d =
      4,096 in float64 on the card and on the CPU (signal and iterations
-     equal, x within 1e-8); examples/block_lbfgs_and_ragged.py.
-Phases 21-23 and 25 each print the wall, iterations, flat steps, host
-syncs, all-reduces, kernel launches by shape and the device's busy share
-over the first 3 inner iterations of a second, profiled solve.
+     equal, x within 1e-8); examples/block_lbfgs_and_ragged.py;
+ 26. 1,024 Markowitz portfolios of 500 assets (WIDE_PORTFOLIO) through
+     ``solve_batch`` in float32: condensed systems of K = 501, the batched
+     K > 128 path (kernel 3 at (1024, 128, 128), which must launch); hit
+     rate (under 0.99 the fleet runs again in float64), iterations, the
+     median wall of WIDE_TIMED solves, flat steps, host syncs, kernel-3
+     launches by B, the busy share over 3 profiled iterations, the peak
+     allocation, the structural checks and digests; one condensed
+     direction of the first iterate as one batched ``reg_solve_kkt`` call
+     and as 1,024 calls at B = 1 (wall, host syncs, launches each); rows
+     0-15 solved one at a time at B = 1 on the card and as one batch on
+     the CPU, each held as phase 16 holds a bucket (signals equal, x
+     within CARD_CPU_XTOL['portfolio'], or STOP_APART_XTOL where the two
+     stop at other iteration counts).
+Phases 21-23, 25 and 26 each print the wall, iterations, flat steps, host
+syncs, kernel launches by shape and the device's busy share over the
+first 3 inner iterations of a second, profiled solve (21-25 also
+all-reduces).
 Each kernel is timed twice: ``ms``, CUDA events around one wrapper call
 (what the path sees, host enqueue included), and ``device_ms``, the
 kernel's own device time per launch from ``torch.profiler``, with the
@@ -168,9 +183,10 @@ RESIDUAL_C = 2.0
 # the elementwise tolerance to the plain version widened (see check_solve)
 PIVOT_FLOOR = 1e-2
 PANEL_SIZES = (1, 2, 31, 33, 64, 100, 127, 128)
-# batches of 128-panels held bitwise in phase 19: one panel, and the edges
-# of one and two panels an SM on the H100's 132 SMs
-PANEL_BATCHES = (1, 131, 132, 133, 256, 264)
+# batches of 128-panels held bitwise in phase 19 (f32 and f64): one panel,
+# the edges of one and two panels an SM on the H100's 132 SMs, and phase
+# 26's 1,024 (its fleet's first factorizations)
+PANEL_BATCHES = (1, 131, 132, 133, 256, 264, 1024)
 TIMED_SHAPES = ((10_000, 16), (10_000, 36))
 FACTOR_ONLY_SHAPE = (512, 128)
 REPS = 50                      # CUDA-event timings of a kernel call
@@ -200,6 +216,13 @@ WAVE_SMALL = 4
 MIXED = dict(portfolio=2048, svm=2048, maxent=2048, mpc=2048, box=512)
 PORTFOLIO_D, SVM_N, SVM_FEAT, MAXENT_D, MAXENT_M = 64, 96, 8, 64, 2
 MPC_NX, MPC_NU, MPC_T, BOX_D = 4, 2, 20, 16
+# phase 26: one rebalance per account of a book of 1,024 accounts over an
+# S&P 500-sized universe, Markowitz portfolios of 500 assets (the family's
+# factor-model covariance, cap 4/D), float32: condensed systems of K = 501,
+# the batched K > 128 path (kernel 3 at (1024, 128, 128)); WIDE_TIMED
+# timed solves, rows 0-15 held to the B = 1 card path and to the CPU path
+WIDE_PORTFOLIO = dict(B=1024, D=500)
+WIDE_TIMED, WIDE_ROWS = 3, 16
 # phase 16 holds each bucket on the card to the same solve_fleet call on the
 # CPU: x within this many (1 + |x|) where both converged.  The MPC bucket's
 # float32 stationarity test is decided by roundoff on some instances (its
@@ -1251,12 +1274,13 @@ def structure_ok(name, x, data, fval, prob):
     return float(x.abs().max()) - 1.0 - tol                   # box QPs
 
 
-def card_against_cpu(name, res, ref, cpu_wall):
-    """Hold a bucket's card results to the CPU path's, instance by
-    instance: signals equal except on CLASSIFIED_SIGNAL_SPLITS, x within
-    CARD_CPU_XTOL (1 + |x|) where both converged, or within
-    STOP_APART_XTOL where they converged at different iteration counts;
-    iteration counts and objective values are recorded, not held."""
+def card_against_cpu(name, res, ref, cpu_wall, against="CPU"):
+    """Hold a bucket's card results to the CPU path's (or to ``against``'s,
+    results on the CPU), instance by instance: signals equal except on
+    CLASSIFIED_SIGNAL_SPLITS, x within CARD_CPU_XTOL (1 + |x|) where both
+    converged, or within STOP_APART_XTOL where they converged at different
+    iteration counts; iteration counts and objective values are recorded,
+    not held."""
     sg, sc = res.signal.cpu().numpy(), ref.signal.numpy()
     ig, ic = res.iter_count.cpu().numpy(), ref.iter_count.numpy()
     both = np.isin(sg, (1, 2)) & np.isin(sc, (1, 2))
@@ -1283,7 +1307,8 @@ def card_against_cpu(name, res, ref, cpu_wall):
                             zip(*np.unique(sc, return_counts=True))},
                cpu_mean_iters=float(ic.mean()), cpu_max_iters=int(ic.max()),
                cpu_wall_s=cpu_wall)
-    print(f"  {name} card against CPU: signals equal {out['signals_equal']}/"
+    print(f"  {name} card against {against}: signals equal "
+          f"{out['signals_equal']}/"
           f"{sg.size}, differ at {sig_diff}; iterations equal "
           f"{out['iters_equal']}/{sg.size}, differ first at {its_diff[:20]};"
           f" max |dx|/(1+|x|) {out['max_rel_dx']:.3e}, max |df|/(1+|f|) "
@@ -1292,17 +1317,17 @@ def card_against_cpu(name, res, ref, cpu_wall):
           f"beyond {CARD_CPU_XTOL[name]} (held within {STOP_APART_XTOL}) at "
           f"{{index: (dx, card, CPU iterations)}} "
           f"{out['stop_apart_beyond_xtol']}; x beyond its bound at "
-          f"{out['x_beyond']}; CPU signals {out['cpu_signals']}, mean "
+          f"{out['x_beyond']}; {against} signals {out['cpu_signals']}, mean "
           f"{out['cpu_mean_iters']:.6f}, max {out['cpu_max_iters']} "
           f"iterations, {cpu_wall:.1f} s", flush=True)
     unclassified = sorted(set(sig_diff)
                           - set(CLASSIFIED_SIGNAL_SPLITS.get(name, ())))
     if unclassified:
-        raise AssertionError(f"{name}: card and CPU signals differ at "
+        raise AssertionError(f"{name}: card and {against} signals differ at "
                              f"{unclassified}, classified nowhere (ROADMAP "
                              f"Queue 3)")
     if beyond:
-        raise AssertionError(f"{name}: card and CPU x differ beyond "
+        raise AssertionError(f"{name}: card and {against} x differ beyond "
                              f"{CARD_CPU_XTOL[name]} (1+|x|), or "
                              f"{STOP_APART_XTOL} at other iteration counts, "
                              f"at {out['x_beyond']}")
@@ -1708,37 +1733,43 @@ def schur_factor_phase(lin, sl, ll, cfg, device):
         print(f"  ok kernel 1 at ({Bn}, {n}): bitwise equal to "
               f"ldlt_factor_small_ref", flush=True)
     # the batched kernel 3 at the wave edges of its variants (panels_per_sm
-    # switches above the SM count), on random, indefinite (rand_sym's every
-    # 7th) and exact-zero-pivot panels (every 11th)
-    Q = rand_sym(torch.Generator().manual_seed(11), max(PANEL_BATCHES), 128,
-                 torch.float32, device)
-    Q[5::11] = torch.as_tensor(exact_zero_pivot_panel(128, 5),
-                               dtype=torch.float32, device=device)
+    # switches above the SM count) and at phase 26's batch, on random,
+    # indefinite (rand_sym's every 7th) and exact-zero-pivot panels (every
+    # 11th), in f32 and f64
     sms = ll.sm_count(device)
-    for Bn in PANEL_BATCHES:
-        Pb = Q[:Bn].contiguous()
-        L, d = ll.panel_ldlt(Pb)
-        Lr, dr = ll.panel_ldlt_ref(Pb)
-        if not (same_bits(L, Lr) and same_bits(d, dr)):
-            bad = [i for i in range(Bn) if not (same_bits(L[i], Lr[i])
-                                                and same_bits(d[i], dr[i]))]
-            raise AssertionError(f"batched kernel 3 (B = {Bn}) differs from "
-                                 f"panel_ldlt_ref at panels {bad[:10]}")
-        if Bn == 256:
-            # the batched reference against the reference panel by panel
-            for i in range(Bn):
-                Li, di = ll.panel_ldlt_ref(Pb[i])
-                if not (same_bits(Li, Lr[i]) and same_bits(di, dr[i])):
-                    raise AssertionError(f"panel_ldlt_ref batched differs "
-                                         f"from panel {i} alone")
-        for i in {0, Bn - 1}:
-            L1, d1 = ll.panel_ldlt(Pb[i])
-            if not (same_bits(L1, L[i]) and same_bits(d1, d[i])):
-                raise AssertionError("kernel 3 on one panel differs from "
-                                     "the same panel in a batch")
-        print(f"  ok batched kernel 3 at ({Bn}, 128, 128), "
-              f"{ll.panels_per_sm(Bn, sms, torch.float32)} panels an SM "
-              f"({sms} SMs): bitwise equal to panel_ldlt_ref", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        Q = rand_sym(torch.Generator().manual_seed(11), max(PANEL_BATCHES),
+                     128, dtype, device)
+        Q[5::11] = torch.as_tensor(exact_zero_pivot_panel(128, 5),
+                                   dtype=dtype, device=device)
+        for Bn in PANEL_BATCHES:
+            Pb = Q[:Bn].contiguous()
+            L, d = ll.panel_ldlt(Pb)
+            Lr, dr = ll.panel_ldlt_ref(Pb)
+            if not (same_bits(L, Lr) and same_bits(d, dr)):
+                bad = [i for i in range(Bn)
+                       if not (same_bits(L[i], Lr[i])
+                               and same_bits(d[i], dr[i]))]
+                raise AssertionError(f"batched kernel 3 (B = {Bn}, {dtype})"
+                                     f" differs from panel_ldlt_ref at "
+                                     f"panels {bad[:10]}")
+            if Bn == 256 and dtype == torch.float32:
+                # the batched reference against the reference panel by
+                # panel
+                for i in range(Bn):
+                    Li, di = ll.panel_ldlt_ref(Pb[i])
+                    if not (same_bits(Li, Lr[i]) and same_bits(di, dr[i])):
+                        raise AssertionError(f"panel_ldlt_ref batched "
+                                             f"differs from panel {i} alone")
+            for i in {0, Bn - 1}:
+                L1, d1 = ll.panel_ldlt(Pb[i])
+                if not (same_bits(L1, L[i]) and same_bits(d1, d[i])):
+                    raise AssertionError("kernel 3 on one panel differs "
+                                         "from the same panel in a batch")
+            print(f"  ok batched kernel 3 at ({Bn}, 128, 128), {dtype}, "
+                  f"{ll.panels_per_sm(Bn, sms, dtype)} panels an SM ({sms} "
+                  f"SMs): bitwise equal to panel_ldlt_ref", flush=True)
+        del Q
     residency = {per_sm: ll.panel_residency(per_sm, torch.float32, device)
                  for per_sm in (1, 2)}
     print(f"  kernel 3, f32, n = 128: the one-panel variant {residency[1]} "
@@ -1747,7 +1778,6 @@ def schur_factor_phase(lin, sl, ll, cfg, device):
     if residency[2] < 2:
         raise AssertionError("the two-panel variant of kernel 3 does not "
                              "put two panels on an SM")
-    del Q
     P = rand_sym(torch.Generator().manual_seed(7), LARGE["K"], 128,
                  torch.float32, device)
     rec["panel_ldlt_batched"] = dict(
@@ -1756,6 +1786,15 @@ def schur_factor_phase(lin, sl, ll, cfg, device):
         plain_ms=cuda_ms(lambda: ll.panel_ldlt_ref(P), 3), library_ms=None,
         bound=factor_bound(LARGE["K"], 128), shape=[LARGE["K"], 128, 128],
         panels_resident_per_sm=residency)
+    Bw = WIDE_PORTFOLIO["B"]
+    P = rand_sym(torch.Generator().manual_seed(7), Bw, 128, torch.float32,
+                 device)
+    rec[f"panel_ldlt_batched_{Bw}"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: ll.panel_ldlt(P), REPS),
+        device_ms=device_ms(lambda: ll.panel_ldlt(P), ("panel_ldlt_kernel",)),
+        plain_ms=cuda_ms(lambda: ll.panel_ldlt_ref(P), 3), library_ms=None,
+        bound=factor_bound(Bw, 128), shape=[Bw, 128, 128])
+    del P
     for name, r in rec.items():
         print(f"  f32 {name} at {r['shape']}: {r['ms']:.4f} ms per call, "
               f"device {r['device_ms'][0]:.4f} ms per launch "
@@ -2126,6 +2165,171 @@ def lbfgs_block_phase(S, counters, sl, ll, _sync, device):
     return out
 
 
+def wide_fleet_phase(cfg, device, counters, sl, ll, lin, _sync):
+    """Phase 26: WIDE_PORTFOLIO's fleet through ``solve_batch`` on the card
+    (WIDE_TIMED timed solves, the counters reset before each; the first 3
+    iterations of another solve profiled; peak allocation); one condensed
+    direction of the fleet's first iterate through one batched
+    ``reg_solve_kkt`` call and as B calls at B = 1 (the single-system path),
+    each timed; the first WIDE_ROWS rows solved one at a time at B = 1 on
+    the card and as one batch on the CPU, each held to the fleet's
+    results."""
+    from types import SimpleNamespace
+
+    from pyipm_tpu_torch import solve_batch
+    from pyipm_tpu_torch.config import matmul_precision
+    from pyipm_tpu_torch.core import kkt as K
+    from pyipm_tpu_torch.core.linesearch import take
+    from pyipm_tpu_torch.core.solver import BatchSolver
+    from pyipm_tpu_torch.models import applications as app
+    from pyipm_tpu_torch.ops.condensed import _Condensed, _split
+    Bn, Dn = WIDE_PORTFOLIO["B"], WIDE_PORTFOLIO["D"]
+    t0 = time.perf_counter()
+    data = app.portfolio_data(app.sample_portfolio_arrays(SEED, Bn, Dn),
+                              device=device)
+    x0 = app.portfolio_x0(Bn, Dn, device=device)
+    prob = app.make_portfolio_problem(Dn)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    walls = []
+    for _ in range(WIDE_TIMED):
+        res, wall = timed(lambda: solve_batch(prob, x0, cfg, params=data),
+                          counters)
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated(device)
+    sig, its = res.signal.cpu().numpy(), res.iter_count.cpu().numpy()
+    conv = torch.as_tensor(np.isin(sig, (1, 2)), device=device)
+    hit = float(conv.float().mean())
+    worst = structure_ok("portfolio", res.x[conv], take(data, conv),
+                         res.fval[conv], prob)
+    k3 = {str(k[1]): v for k, v in ll.LAUNCHES_BY_B.items()
+          if v and k[0] == "panel_ldlt"}
+    out = dict(instances=Bn, nvar=Dn, K=Dn + prob.neq, hit_rate=hit,
+               mean_iters=float(its.mean()), max_iters=int(its.max()),
+               signals={str(k): int(v) for k, v in
+                        zip(*np.unique(sig, return_counts=True))},
+               walls_s=walls, wall_s=float(np.median(walls)),
+               flat_steps=_sync.COUNTS["flat_steps"],
+               host_syncs=_sync.COUNTS["host_syncs"],
+               launches={**sl.LAUNCHES, **ll.LAUNCHES}, kernel3_by_b=k3,
+               launches_by_n=by_n(sl), max_memory_bytes=peak,
+               structure_worst=worst, setup_s=setup_s,
+               digests=digests(res.signal, res.iter_count, res.x))
+    out["iters_per_s"] = float(its.sum()) / out["wall_s"]
+    solver = BatchSolver(prob, cfg)
+    st0 = solver.init_state(x0, data)
+    _, busy, pwall, idle = busy_share(lambda: solver.run_budget(st0, 3,
+                                                                data))
+    out.update(profiled_iters=3, busy_ms=busy, profiled_wall_s=pwall,
+               idle_share=idle)
+    print(f"  B={Bn} portfolios of D={Dn} (K={out['K']}), float32: hit "
+          f"rate {hit:.4f}, mean {out['mean_iters']:.3f}, max "
+          f"{out['max_iters']} iterations, signals {out['signals']}; walls "
+          f"{[round(w, 4) for w in walls]} s (median {out['wall_s']:.4f} s,"
+          f" {out['iters_per_s']:.1f} iters/s); flat steps "
+          f"{out['flat_steps']}, host syncs {out['host_syncs']} a solve; "
+          f"kernel 3 launches by B {k3}, launches {out['launches']}; peak "
+          f"allocation {peak} B; structural checks worst {worst:.3e}; "
+          f"first 3 iterations profiled: device busy {busy:.1f} ms of "
+          f"{pwall:.3f} s (idle {100 * idle:.1f}%); data made in "
+          f"{setup_s:.2f} s; digests {out['digests']}", flush=True)
+    if not np.all(np.isfinite(res.x.cpu().numpy())):
+        raise AssertionError("wide portfolios: non-finite solution")
+    if worst > 0:
+        raise AssertionError(f"wide portfolios: structural check fails by "
+                             f"{worst}")
+    at1 = torch.as_tensor(sig == 1, device=device)
+    if not bool((res.kkt[at1] <= cfg.Ktol).all()):
+        raise AssertionError("wide portfolios: a Ktol-converged instance "
+                             "has KKT > Ktol")
+    if not k3.get(str(Bn)):
+        raise AssertionError(f"kernel 3 was not launched at B = {Bn}: {k3}")
+    if hit < 0.99:
+        # f32 at this size: record, then the same fleet in f64
+        cfg64 = cfg.replace(float_dtype="float64")
+        d64 = retype(data, (t.double() for t in data))
+        r64, w64 = timed(lambda: solve_batch(prob, x0.double(), cfg64,
+                                             params=d64), counters)
+        s64 = r64.signal.cpu().numpy()
+        out["float64"] = dict(
+            hit_rate=float(np.mean(np.isin(s64, (1, 2)))),
+            mean_iters=float(r64.iter_count.float().mean()),
+            max_iters=int(r64.iter_count.max()), wall_s=w64,
+            signals={str(k): int(v) for k, v in
+                     zip(*np.unique(s64, return_counts=True))})
+        print(f"  again in float64: {out['float64']}", flush=True)
+        del r64, d64
+
+    # one condensed direction of the first iterate, batched and one by one
+    cond = _Condensed(prob, st0.x, st0.s, st0.lda, data)
+    rhs = cond.rhs(*_split(prob, -K.grad(prob, st0.x, st0.s, st0.lda,
+                                        st0.mu, data)))
+    kw = dict(nvar=Dn, neq=prob.neq, nineq=0, eps=cfg.eps,
+              reg_coef=cfg.reg_coef, eta=cfg.eta, beta=cfg.beta,
+              delta0=cfg.delta0, max_retries=cfg.max_reg_retries,
+              want_solver=True, block=cfg.ldlt_block)
+
+    def batched():
+        return lin.reg_solve_kkt(cond.Kc, rhs, st0.delta, st0.mu, **kw)[:3]
+
+    def one_by_one(n=Bn):
+        outs = [lin.reg_solve_kkt(cond.Kc[i:i + 1], rhs[i:i + 1],
+                                  st0.delta[i:i + 1], st0.mu[i:i + 1],
+                                  **kw)[:3] for i in range(n)]
+        return [torch.cat(o) for o in zip(*outs)]
+
+    direction = {}
+    with matmul_precision(cfg.matmul_precision):
+        batched()                                              # warm-ups
+        one_by_one(4)
+        for name, fn in (("batched", batched), ("one_by_one", one_by_one)):
+            r, wall = timed(fn, counters)
+            direction[name] = dict(
+                wall_s=wall, host_syncs=_sync.COUNTS["host_syncs"],
+                launches=dict(ll.LAUNCHES),
+                kernel3_by_b={str(k[1]): v for k, v in
+                              ll.LAUNCHES_BY_B.items() if v}, out=r)
+    rb, r1 = direction["batched"].pop("out"), direction["one_by_one"].pop(
+        "out")
+    direction.update(
+        dz_max_rel_diff=float(rel_norm(rb[0], r1[0])),
+        retries_equal=int((rb[2] == r1[2]).sum()),
+        delta_new_equal=int((rb[1] == r1[1]).sum()))
+    print(f"  one direction, (B, K) = ({Bn}, {out['K']}): batched "
+          f"{direction['batched']}; as {Bn} calls at B = 1 "
+          f"{direction['one_by_one']}; dz relative difference "
+          f"{direction['dz_max_rel_diff']:.3e}, retries equal "
+          f"{direction['retries_equal']}/{Bn}, delta_new equal "
+          f"{direction['delta_new_equal']}/{Bn}", flush=True)
+    if not bool(torch.isfinite(rb[0]).all()):
+        raise AssertionError("the batched direction is not finite")
+    out["one_direction"] = direction
+    del cond, rhs, rb, r1, st0
+
+    # the first rows one at a time at B = 1 on the card (the single-system
+    # path), and as one batch on the CPU (the batched body, plain panel)
+    rows = range(WIDE_ROWS)
+    fields = ("signal", "iter_count", "x", "fval")
+    mine = SimpleNamespace(**{f: getattr(res, f)[:WIDE_ROWS] for f in fields})
+    t0 = time.perf_counter()
+    ones = [solve_batch(prob, x0[i:i + 1], cfg,
+                        params=take(data, torch.tensor([i], device=device)))
+            for i in rows]
+    one_wall = time.perf_counter() - t0
+    ref1 = SimpleNamespace(**{f: torch.cat([getattr(o, f) for o in ones])
+                              .cpu() for f in fields})
+    out["rows_b1_card"] = card_against_cpu(
+        "portfolio", mine, ref1, one_wall, against="B = 1 on the card")
+    t0 = time.perf_counter()
+    ref = solve_batch(prob, x0[:WIDE_ROWS].cpu(), cfg, params=retype(
+        data, (t[:WIDE_ROWS].cpu() for t in data)))
+    out["rows_cpu"] = card_against_cpu("portfolio", mine, ref,
+                                       time.perf_counter() - t0)
+    del res, data, ones, ref
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2436,6 +2640,9 @@ def main() -> int:
           f"d={LBFGS_BLOCK['d']}, mc={LBFGS_BLOCK['p']}, float32")
     schur["lbfgs_block"] = lbfgs_block_phase(S, counters, sl, ll, _sync,
                                              device)
+    phase(f"26 {WIDE_PORTFOLIO['B']} portfolios of {WIDE_PORTFOLIO['D']} "
+          f"assets, float32: the batched K > 128 path")
+    wide = wide_fleet_phase(cfg, device, counters, sl, ll, lin, _sync)
 
     def row(name, replaces, source, launches_, rec_, shape):
         return {"name": name, "route": "cuda", "source": source,
@@ -2496,6 +2703,12 @@ def main() -> int:
             "pyipm_tpu_torch/csrc/panel_ldlt.cu",
             schur["large"]["launches"]["panel_ldlt"],
             schur_kernels["panel_ldlt_batched"], [LARGE["K"], 128, 128]),
+        row(f"panel_ldlt_batched_{WIDE_PORTFOLIO['B']}",
+            "pyipm_tpu/ops/pallas_ldlt.py:198",
+            "pyipm_tpu_torch/csrc/panel_ldlt.cu",
+            wide["kernel3_by_b"][str(WIDE_PORTFOLIO["B"])],
+            schur_kernels[f"panel_ldlt_batched_{WIDE_PORTFOLIO['B']}"],
+            [WIDE_PORTFOLIO["B"], 128, 128]),
         row("ldlt_factor_small_schur", "pyipm_tpu/ops/pallas_ldlt.py:49",
             small, schur["weak"]["launches"]["factor"],
             schur_kernels["ldlt_factor_small_65536x16"], [65_536, 16]),
@@ -2515,6 +2728,7 @@ def main() -> int:
                             "mehrotra_fleet": mlaunches,
                             "lbfgs_dense": lbfgs["launches"],
                             "lbfgs_block": schur["lbfgs_block"]["launches"],
+                            "wide_portfolio": wide["launches"],
                             "cli": facade["launches"],
                             "wave_fleet": wave["launches"],
                             "budget_resume": budget["launches"],
@@ -2553,6 +2767,7 @@ def main() -> int:
         "ldlt_solve_small_wide_instances_per_sm": err["solve_residency"],
         "schur_factor": schur_factor, "schur": schur,
         "sizes_held_after_phase_23": held_schur,
+        "wide_portfolio": wide,
         "total_s": time.perf_counter() - T_START}
     print(f"chip_smoke: all phases passed in {record['total_s']:.1f} s")
     print(smi)

@@ -27,6 +27,26 @@ import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
 
+# ``vmap(hessian(f))`` (forward over ``jacrev``, the JAX package's
+# ``jax.hessian``) copies per-instance data that meets the D tangents, such
+# as S in x'Sx, once for each tangent when B > 1: B D^3 elements of x's
+# dtype, 477 GiB for 1,024 portfolios of 500 assets in float32.  Forward
+# over ``grad`` makes no such copy and is the same derivative; it is taken
+# where that estimate passes this many bytes, so every smaller batch (each
+# fleet of up to 2,048 instances of D <= 96 among them) keeps ``hessian``'s
+# bits.
+HESS_COPY_BYTES = 8 << 30
+
+
+def _hess_map(fn, x, *rest):
+    """The (B, D, D) Hessians of a per-instance scalar ``fn(x, *rest)``
+    over a (B, D) batch."""
+    B, D = x.shape
+    if B > 1 and B * D ** 3 * x.element_size() > HESS_COPY_BYTES:
+        return vmap(jacfwd(grad(fn)))(x, *rest)
+    return vmap(hessian(fn))(x, *rest)
+
+
 def _map(fn, x, *rest):
     """Apply a per-instance ``fn(x, *rest)`` over a (B, D) batch, or over
     a (B, W, D) batch of W trial points per instance (``rest`` is then
@@ -130,7 +150,7 @@ class Problem:
         if self.d2f is not None:
             return vmap(lambda x_, p_: torch.reshape(
                 self.d2f(x_, p_), (self.nvar, self.nvar)))(x, p)
-        return vmap(hessian(self._f1))(x, p)
+        return _hess_map(self._f1, x, p)
 
     def hess_ce(self, x, lda, p):
         """Hessian of sum(ce * lda[:M]); ``lda`` is the FULL multiplier."""
@@ -143,7 +163,7 @@ class Problem:
         def contracted(x_, l_, p_):
             return torch.sum(self._ce1(x_, p_) * l_)
 
-        return vmap(hessian(contracted))(x, lam, p)
+        return _hess_map(contracted, x, lam, p)
 
     def hess_ci(self, x, lda, p):
         D = self.nvar
@@ -155,7 +175,7 @@ class Problem:
         def contracted(x_, l_, p_):
             return torch.sum(self._ci1(x_, p_) * l_)
 
-        return vmap(hessian(contracted))(x, lam, p)
+        return _hess_map(contracted, x, lam, p)
 
     def hess_lagrangian(self, x, lda, p):
         """d2L = d2f - d2ce - d2ci (reference pyipm.py:40, 816-821)."""

@@ -1,19 +1,22 @@
 """Inertia-corrected KKT solves, batch first (counterpart of
 ``pyipm_tpu/ops/linalg.py``).
 
-Small systems (K <= 128) are batches of (B, K, K) matrices factored by the
-batched LDL^T kernels of :mod:`pyipm_tpu_torch.ops.small_ldlt`.  The JAX
-package's per-instance ``lax.while_loop``s (delta escalation, residual
-gate) become host loops that refactor only the instances still looping;
-the result for each instance is the one a single JAX solve computes.
+A batch of (B, K, K) systems is solved batch first, as the JAX package's
+``vmap`` of its solve: small systems (K <= 128) by the batched LDL^T
+kernels of :mod:`pyipm_tpu_torch.ops.small_ldlt`, larger ones by a
+right-looking LDL^T over 128-wide panels whose (B, 128, 128) diagonal
+panels go to the panel kernel of :mod:`pyipm_tpu_torch.ops.large_ldlt` in
+one launch, solved by batched triangular solves.  The JAX package's
+per-instance ``lax.while_loop``s (delta escalation, residual gate) become
+host loops that refactor only the instances still looping; the result for
+each instance is the one a single JAX solve computes.
 
-Large systems (K > 128) take the blocked path, one system at a time:
-a right-looking LDL^T over 128-wide panels (each panel by the panel kernel
-of :mod:`pyipm_tpu_torch.ops.large_ldlt`, the trailing updates as matrix
-products), the inverses of the diagonal panels or superblocks, and block
-substitution whose backward half is the sweep kernel.  Each ``lax.cond``
-and ``lax.while_loop`` of the JAX large path is a host branch or loop
-whose condition goes through :mod:`pyipm_tpu_torch._sync`.
+One large system (B = 1, K > 128) takes the single-system blocked path:
+the panel kernel on each diagonal panel, the inverses of the diagonal
+panels or superblocks, and block substitution whose backward half is the
+sweep kernel.  Each ``lax.cond`` and ``lax.while_loop`` of the JAX large
+path is a host branch or loop whose condition goes through
+:mod:`pyipm_tpu_torch._sync`.
 """
 
 from __future__ import annotations
@@ -79,13 +82,17 @@ def _eq_reg_term(mu, reg_coef, eta, beta):
             * torch.pow(torch.clamp(mu, min=0), _scalar(beta, mu)))
 
 
-def _shifted(Hs, dlt, shift_diag, eq, eq_diag):
-    """Hs + dlt*diag(shift_diag) - eq*diag(eq_diag), touching only the
-    diagonal (the off-diagonal adds of exact zeros are no-ops)."""
-    Hm = Hs.clone()
+def _shift_(Hm, dlt, shift_diag, eq, eq_diag):
+    """Hm + dlt*diag(shift_diag) - eq*diag(eq_diag) in place, touching only
+    the diagonal (the off-diagonal adds of exact zeros are no-ops)."""
     dg = Hm.diagonal(dim1=-2, dim2=-1)
     dg.copy_((dg + dlt[:, None] * shift_diag) - eq[:, None] * eq_diag)
     return Hm
+
+
+def _shifted(Hs, dlt, shift_diag, eq, eq_diag):
+    """:func:`_shift_` of a copy of Hs."""
+    return _shift_(Hs.clone(), dlt, shift_diag, eq, eq_diag)
 
 
 # ----------------------------------------------------------------------
@@ -512,40 +519,73 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
     H (B, K, K), g (B, K), delta and mu (B,).  Returns
     (dz, delta_new, retries); with ``want_solver`` additionally a function
     solving further (B, K) right-hand sides against the final factors and
-    the applied shifts (delta_applied, eq_applied), each (B,).  K > 128
-    takes the blocked path (``block``, ``group``, ``ir_steps``), one
-    instance at a time.  ``method='lu'`` takes the reference's
-    eigenvalue-inertia flow and an LU solve instead (no ``want_solver``).
+    the applied shifts (delta_applied, eq_applied), each (B,).  A batch
+    takes :func:`_reg_solve_batched` (K > 128 with ``block``-wide panels
+    and ``ir_steps``); one system with K > 128 takes
+    :func:`_reg_solve_large` (``block``, ``group``, ``ir_steps``).
+    ``method='lu'`` takes the reference's eigenvalue-inertia flow and an
+    LU solve instead (no ``want_solver``).
     """
     B, K, _ = H.shape
+    kw = dict(nvar=nvar, neq=neq, nineq=nineq, eps=eps, reg_coef=reg_coef,
+              eta=eta, beta=beta, delta0=delta0, max_retries=max_retries)
     if method == "lu":
         if want_solver:
             raise ValueError("method='lu' keeps no factors (want_solver)")
-        return _reg_solve_eigh(
-            H, g, delta, mu, nvar=nvar, neq=neq, nineq=nineq, eps=eps,
-            reg_coef=reg_coef, eta=eta, beta=beta, delta0=delta0,
-            max_retries=max_retries)
+        return _reg_solve_eigh(H, g, delta, mu, **kw)
     if method != "ldlt":
         raise ValueError(f"unknown method {method!r}")
-    if K > SMALL_K:
-        outs = [_reg_solve_large(
-            H[i], g[i], delta[i], mu[i], nvar=nvar, neq=neq, nineq=nineq,
-            eps=eps, reg_coef=reg_coef, eta=eta, beta=beta, delta0=delta0,
-            max_retries=max_retries, block=block, group=group,
-            ir_steps=ir_steps, want_solver=want_solver) for i in range(B)]
-        dz, delta_new, retries = (torch.stack([o[j] for o in outs])
-                                  for j in range(3))
-        if not want_solver:
-            return dz, delta_new, retries
-        solvers = [o[3] for o in outs]
+    if K <= SMALL_K or B > 1:
+        return _reg_solve_batched(H, g, delta, mu, block=block,
+                                  ir_steps=ir_steps, want_solver=want_solver,
+                                  **kw)
+    out = _reg_solve_large(H[0], g[0], delta[0], mu[0], block=block,
+                           group=group, ir_steps=ir_steps,
+                           want_solver=want_solver, **kw)
+    dz, delta_new, retries = (torch.stack([o]) for o in out[:3])
+    if not want_solver:
+        return dz, delta_new, retries
+    solve_one = out[3]
 
-        def apply_all(rhs):
-            return torch.stack([f(r) for f, r in zip(solvers, rhs)])
+    def apply_one(rhs):
+        return torch.stack([solve_one(rhs[0])])
 
-        applied = tuple(torch.stack([o[4][j] for o in outs])
-                        for j in range(2))
-        return dz, delta_new, retries, apply_all, applied
+    return (dz, delta_new, retries, apply_one,
+            tuple(torch.stack([a]) for a in out[4]))
+
+
+def _ldlt_solve_padded(L, d, b):
+    """(L diag(d) L^T) x = b for B padded factors (B, npad, npad), (B,
+    npad) of :func:`ldlt_factor_batched` and b (B, K), K <= npad: two
+    batched triangular solves on the zero-padded right-hand side (the
+    identity tail of the factors keeps the padding zero)."""
+    Bb, npad, _ = L.shape
+    K = b.shape[-1]
+    bp = b.new_zeros((Bb, npad, 1))
+    bp[:, :K, 0] = b
+    y = torch.linalg.solve_triangular(L, bp, upper=False, unitriangular=True)
+    z = y / _safe(d)[..., None]
+    x = torch.linalg.solve_triangular(L.transpose(1, 2), z, upper=True,
+                                      unitriangular=True)
+    return x[:, :K, 0]
+
+
+def _reg_solve_batched(H, g, delta, mu, *, nvar, neq, nineq, eps, reg_coef,
+                       eta, beta, delta0, max_retries, block, ir_steps,
+                       want_solver):
+    """``reg_solve_kkt`` of a batch: the JAX ``_reg_solve_ldlt`` under
+    ``vmap``, decision for decision per instance.  K <= 128: kernel 1 and
+    kernel 2 (the solve with the Ruiz scale fused), refinement always.
+    K > 128: :func:`ldlt_factor_batched` (kernel 3 on the batch of
+    diagonal panels) padded to a multiple of ``block``, batched triangular
+    solves on the padded factors, refinement only where the unrefined
+    backward error exceeds eps^0.75 (the JAX large path's ``lax.cond``,
+    a select under ``vmap``).  The per-instance ``lax.while_loop``s
+    (escalation, residual gate) are host loops that refactor only the
+    instances still looping, gathered by one host sync a round for the
+    whole batch."""
     D, M, N = nvar, neq, nineq
+    B, K, _ = H.shape
     dtype, dev = H.dtype, H.device
     target = M + N
     idx = torch.arange(K, device=dev)
@@ -554,26 +594,42 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
     eps_t = _scalar(eps, H)
     delta0_t = _scalar(delta0, H)
     tiny = _tiny(dtype)
+    wide = K > SMALL_K
 
     Hs, dsc = ruiz_scale(H)
     shift_diag = (dsc * dsc) * ex
     eq_diag = (dsc * dsc) * eeq
 
-    def factor(Hm):
-        with annotate("ipm-kkt-factor", dev):
-            return ldlt_factor_small(Hm)
+    if wide:
+        def factor(Hm):
+            with annotate("ipm-kkt-factor", dev):
+                return ldlt_factor_batched(Hm, block=block, padded=True)
 
-    def scaled_solve(L_, d_, dsc_, rhs):
-        with annotate("ipm-kkt-solve", dev):
-            return ldlt_solve_small(L_, d_, rhs.contiguous(), scale=dsc_)
+        def scaled_solve(L_, d_, dsc_, rhs):
+            with annotate("ipm-kkt-solve", dev):
+                return dsc_ * _ldlt_solve_padded(L_, d_, dsc_ * rhs)
+    else:
+        def factor(Hm):
+            with annotate("ipm-kkt-factor", dev):
+                return ldlt_factor_small(Hm.contiguous())
 
-    L, dv = factor(Hs.contiguous())
-    ok0 = ldlt_inertia_ok(dv, target, eps_t)
+        def scaled_solve(L_, d_, dsc_, rhs):
+            with annotate("ipm-kkt-solve", dev):
+                return ldlt_solve_small(L_, d_, rhs.contiguous(), scale=dsc_)
+
+    def bad_inertia(d_):
+        dv_ = d_[:, :K]
+        return ((~torch.all(torch.isfinite(dv_), dim=-1))
+                | (torch.sum(dv_ < 0, dim=-1) != target))
+
+    L, dv = factor(Hs)
+    d0 = dv[:, :K]
+    ok0 = ldlt_inertia_ok(d0, target, eps_t)
     if M:
-        ad0 = torch.abs(dv)
+        ad0 = torch.abs(d0)
         rcond0 = (torch.amin(ad0, dim=-1)
                   / torch.clamp(torch.amax(ad0, dim=-1), min=tiny))
-        illcond0 = (~torch.all(torch.isfinite(dv), dim=-1)) | (rcond0 <= eps_t)
+        illcond0 = (~torch.all(torch.isfinite(d0), dim=-1)) | (rcond0 <= eps_t)
         reg = _eq_reg_term(mu, reg_coef, eta, beta)
         eq_applied = torch.where((~ok0) & illcond0, reg, torch.zeros_like(reg))
     else:
@@ -591,16 +647,16 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
             break
         t_s = t[ids]
         dlt_s = torch.where(t_s == 0, d1[ids], dlt[ids] * 10.0)
-        L_s, d_s = factor(_shifted(
-            Hs[ids], dlt_s, shift_diag[ids], eq_applied[ids], eq_diag[ids]))
+        # the gathered rows are a copy: shifted in place
+        L_s, d_s = factor(_shift_(Hs[ids], dlt_s, shift_diag[ids],
+                                  eq_applied[ids], eq_diag[ids]))
         L[ids] = L_s
         dv[ids] = d_s
         dlt[ids] = dlt_s
         t[ids] = t_s + 1
-        bad = ((~torch.all(torch.isfinite(d_s), dim=-1))
-               | (torch.sum(d_s < 0, dim=-1) != target))
         need = torch.zeros_like(need)
-        need[ids] = bad & (t_s + 1 < max_retries)
+        need[ids] = bad_inertia(d_s) & (t_s + 1 < max_retries)
+        del L_s
 
     fixed = t > 0
     zero = H.new_zeros((B,))
@@ -611,11 +667,13 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
     hnorm_H = torch.linalg.matrix_norm(H)
     sq_ex = torch.sqrt(torch.sum(ex))
     sq_eeq = torch.sqrt(torch.sum(eeq))
+    ir_skip_tol = eps ** 0.75
 
     def solve_refined(H_, g_, dsc_, L_, d_, dlt_a, eq_a, hnorm_):
-        """Cached-factor solve + one guarded refinement step against the
-        shifted system (linalg.py:1062-1104; the small path refines
-        unconditionally).  Returns (y, residual norm, norm bound)."""
+        """Cached-factor solve + guarded refinement against the shifted
+        system (linalg.py:1050-1104), each step kept only where it lowers
+        the residual; K > 128 refines only where the unrefined backward
+        error exceeds eps^0.75.  Returns (y, residual norm, norm bound)."""
         def mv(y_):
             return (matvec(H_, y_) + dlt_a[:, None] * (ex * y_)
                     - eq_a[:, None] * (eeq * y_))
@@ -624,17 +682,27 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
         y = scaled_solve(L_, d_, dsc_, g_)
         r = g_ - mv(y)
         rn = _norm(r)
-        y_new = y + scaled_solve(L_, d_, dsc_, r)
-        rn_new = _norm(g_ - mv(y_new))
-        better = rn_new < rn
-        y = torch.where(better[:, None], y_new, y)
-        rn = torch.where(better, rn_new, rn)
+        keep = None
+        if wide:
+            keep = rn > ir_skip_tol * (hn * _norm(y) + _norm(g_) + tiny)
+            if not _sync.any_true(keep):
+                return y, rn, hn
+        for _ in range(max(ir_steps, 1)):
+            y_new = y + scaled_solve(L_, d_, dsc_, r)
+            r_new = g_ - mv(y_new)
+            rn_new = _norm(r_new)
+            better = rn_new < rn
+            if keep is not None:
+                better = better & keep
+            y = torch.where(better[:, None], y_new, y)
+            r = torch.where(better[:, None], r_new, r)
+            rn = torch.where(better, rn_new, rn)
         return y, rn, hn
 
     dz, rn, Hnorm = solve_refined(H, g, dsc, L, dv, delta_applied,
                                   eq_applied, hnorm_H)
 
-    # residual gate (linalg.py:1120-1157): escalate the primal shift while
+    # residual gate (linalg.py:1110-1179): escalate the primal shift while
     # the refined solve's normwise backward error exceeds sqrt(eps)
     gate_tol = torch.sqrt(eps_t)
     gnorm = _norm(g)
@@ -652,8 +720,8 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
         dg = d_gate[ids]
         dlt_s = torch.where(dg == 0, delta0_t, dg) * 10.0
         eq_s = eq_applied[ids]
-        L_s, d_s = factor(_shifted(
-            Hs[ids], dlt_s, shift_diag[ids], eq_s, eq_diag[ids]))
+        L_s, d_s = factor(_shift_(Hs[ids], dlt_s, shift_diag[ids], eq_s,
+                                  eq_diag[ids]))
         dz_s, rn_s, _ = solve_refined(H[ids], g[ids], dsc[ids], L_s, d_s,
                                       dlt_s, eq_s, hnorm_H[ids])
         L[ids] = L_s
@@ -665,6 +733,7 @@ def reg_solve_kkt(H, g, delta, mu, *, nvar: int, neq: int, nineq: int,
         need = torch.zeros_like(need)
         need[ids] = ((backward_err(rn_s, dz_s, Hnorm[ids], gnorm[ids])
                       > gate_tol) & (tg < max_retries))
+        del L_s
 
     gated = t_gate > 0
     delta_new = torch.where(gated, d_gate, delta_new)
@@ -777,27 +846,30 @@ def _pad_identity(A, npad: int):
     return W
 
 
-def ldlt_factor_batched(A, block: int = 128):
+def ldlt_factor_batched(A, block: int = 128, padded: bool = False):
     """Blocked right-looking LDL^T of B blocks (B, n, n), n > ``block``, in
     one pass over the ``block``-wide panels (the JAX package's
     ``vmap(ldlt_factor)``, linalg.py:1266): per panel step one launch of
     the panel kernel on the (B, block, block) diagonal panels, one batched
     triangular solve for the sub-panel rows, one batched trailing product.
     Pads to a multiple of ``block`` with an identity tail, as
-    :func:`ldlt_factor`.  Returns (L, d), (B, n, n) and (B, n)."""
+    :func:`ldlt_factor`, and builds L in place of the working copy.
+    Returns (L, d), (B, n, n) and (B, n), or with ``padded`` the padded
+    (B, npad, npad) and (B, npad)."""
     Bb, n, _ = A.shape
     if not 0 < block <= MAX_PANEL:
         raise ValueError(f"block = {block} not in 1..{MAX_PANEL} (the panel "
                          "kernel's limit)")
     nb = -(-n // block)
     npad = nb * block
-    W = _pad_identity(A, npad).clone()
-    L = A.new_zeros((Bb, npad, npad))
+    W = _pad_identity(A, npad)
+    if W is A:
+        W = A.clone()
     d = A.new_zeros((Bb, npad))
     for k in range(nb):
         j0, j1 = k * block, (k + 1) * block
         Lkk, dk = panel_ldlt(W[:, j0:j1, j0:j1].contiguous())
-        L[:, j0:j1, j0:j1] = Lkk
+        W[:, j0:j1, j0:j1] = Lkk
         d[:, j0:j1] = dk
         if j1 == npad:
             break
@@ -806,9 +878,12 @@ def ldlt_factor_batched(A, block: int = 128):
             Lkk, W[:, j1:, j0:j1].transpose(1, 2), upper=False,
             unitriangular=True).transpose(1, 2)
         L21 = Y / _safe(dk)[:, None, :]
-        L[:, j1:, j0:j1] = L21
         W[:, j1:, j1:].baddbmm_(L21, Y.transpose(1, 2), alpha=-1)
-    return L[:, :n, :n], d[:, :n]
+        W[:, j1:, j0:j1] = L21
+        W[:, j0:j1, j1:] = 0
+    if padded:
+        return W, d
+    return W[:, :n, :n], d[:, :n]
 
 
 def batched_reg_factor(H, delta, mu, *, neq: int, eps: float,

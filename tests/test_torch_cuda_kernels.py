@@ -361,7 +361,7 @@ def test_panel_kernel_bitwise_equal_to_plain(card, n, dtype, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("B", [1, 131, 132, 133, 256, 264])
+@pytest.mark.parametrize("B", [1, 131, 132, 133, 256, 264, 1024])
 def test_panel_kernel_batched_bitwise(card, B, dtype):
     """A batch of 128-panels (random, indefinite and exact-zero-pivot) at
     the edges of one and two panels an SM: bitwise equal to the plain
@@ -532,3 +532,96 @@ def test_large_kernels_reject_bad_input_on_the_card(card):
     with pytest.raises(ValueError, match="16-byte"):
         ll.bwd_sweep_blocks(off, torch.ones(256, device=card),
                             torch.eye(128, device=card).repeat(2, 1, 1))
+
+
+def _kkt_batch(rng, B, K, M):
+    """B saddle systems [[W, Je], [Je', 0]] of size K, cycling through a
+    healthy W, one with 5 negative eigenvalues (escalated), a warm-started
+    delta and an eq block with a zero row (an exact zero pivot: the eq
+    regularization on both devices)."""
+    D = K - M
+    H = np.zeros((B, K, K))
+    delta = np.zeros(B)
+    for i in range(B):
+        Q = np.linalg.qr(rng.standard_normal((D, D)))[0]
+        w = np.linspace(1.0, 3.0, D)
+        if i % 4 == 1:
+            w[:5] *= -1
+        Je = rng.standard_normal((D, M))
+        if i % 4 == 3:
+            Je[:, 0] = 0.0
+        H[i, :D, :D] = (Q * w) @ Q.T
+        H[i, :D, D:] = Je
+        H[i, D:, :D] = Je.T
+        delta[i] = 2e-2 if i % 4 == 2 else 0.0
+    return (H + np.swapaxes(H, 1, 2)) / 2, rng.standard_normal((B, K)), delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_solver", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_wide_batch_solve_matches_cpu_path(card, dtype, want_solver):
+    """``reg_solve_kkt`` on a batch of 8 systems of K = 257 (the batched
+    K > 128 body: kernel 3 on the (8, 128, 128) panels) on the card against
+    the same call on CPU tensors (the plain panel): retries, delta_new and
+    the applied primal shift equal, the eq-block shift where the other
+    device applies it and within 4 eps of it, and every direction (and,
+    with ``want_solver``, a further solve) within the backward error of a
+    stable solve, K eps, against the regularized system."""
+    from pyipm_tpu_torch.config import IPMConfig, matmul_precision
+    B, K, M = 8, 257, 16
+    rng = np.random.default_rng(257)
+    H, g, delta = _kkt_batch(rng, B, K, M)
+    cfg = IPMConfig(float_dtype=dtype)
+    kw = dict(nvar=K - M, neq=M, nineq=0, eps=cfg.eps,
+              reg_coef=cfg.reg_coef, eta=cfg.eta, beta=cfg.beta,
+              delta0=cfg.delta0, want_solver=want_solver)
+    dt = getattr(torch, dtype)
+    r2 = rng.standard_normal((B, K))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        args = [torch.as_tensor(a, dtype=dt, device=dev)
+                for a in (H, g, delta, np.full(B, 0.1))]
+        n0 = ll.LAUNCHES_BY_B["panel_ldlt", B]
+        with matmul_precision(cfg.matmul_precision):
+            res = lin.reg_solve_kkt(*args, **kw)
+            x2 = (res[3](torch.as_tensor(r2, dtype=dt, device=dev))
+                  if want_solver else None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ll.LAUNCHES_BY_B["panel_ldlt", B] > n0
+        out[dev.type] = [t.cpu() if t is not None else None
+                         for t in (*res[:3], x2,
+                                   *(res[4] if want_solver else ()))]
+    got, ref = out["cuda"], out["cpu"]
+    assert torch.equal(got[2], ref[2])
+    assert torch.equal(got[1], ref[1])
+    assert int(ref[2][1]) > 0
+    if want_solver:
+        # the primal shift is delta0 times powers of 10 on both devices;
+        # the eq-block term reg_coef eta mu^beta goes through each
+        # device's pow, which may round its last bit apart
+        assert torch.equal(got[4], ref[4])
+        assert torch.equal(got[5] > 0, ref[5] > 0)
+        torch.testing.assert_close(got[5], ref[5], rtol=4 * torch.finfo(
+            dt).eps, atol=0)
+        shifts = got[4:]
+    else:
+        # the shifts the same decisions apply (want_solver only returns them)
+        shifts = lin.reg_solve_kkt(*(torch.as_tensor(a, dtype=dt) for a in (
+            H, g, delta, np.full(B, 0.1))), **{**kw, "want_solver": True})[4]
+    ex = torch.as_tensor(np.arange(K) < K - M, dtype=torch.float64)
+    Hd = (torch.as_tensor(H)
+          + torch.diag_embed(shifts[0].double()[:, None] * ex)
+          - torch.diag_embed(shifts[1].double()[:, None] * (1 - ex)))
+    bound = K * torch.finfo(dt).eps
+    for x, b in ((got[0], g), (got[3], r2)):
+        if x is None:
+            continue
+        xd, bd = x.double(), torch.as_tensor(b)
+        bk = (torch.linalg.vector_norm(
+            torch.einsum("bij,bj->bi", Hd, xd) - bd, dim=-1)
+            / (torch.linalg.matrix_norm(Hd)
+               * torch.linalg.vector_norm(xd, dim=-1)
+               + torch.linalg.vector_norm(bd, dim=-1)))
+        assert float(bk.max()) <= bound, (float(bk.max()), bound)

@@ -481,26 +481,6 @@ def test_reg_solve_kkt_large_matches_jax(K, case, want_solver):
         assert _rel(got[3], want[3]) < 1e-10
 
 
-def test_reg_solve_kkt_large_batch_runs_per_instance():
-    """A (B, K, K) batch with K > 128 is B single-system solves."""
-    rng = np.random.default_rng(3)
-    Hs = np.stack([_saddle(rng, 200, 16, 0), _saddle(rng, 200, 16, 4)])
-    gs = rng.standard_normal((2, 216))
-    cfg = JCfg(float_dtype="float64")
-    kw = dict(nvar=200, neq=16, nineq=0, eps=cfg.eps, reg_coef=cfg.reg_coef,
-              eta=cfg.eta, beta=cfg.beta, delta0=cfg.delta0)
-    z = torch.zeros(2, dtype=torch.float64)
-    out = TL.reg_solve_kkt(_T(Hs), _T(gs), z, z + 0.1, want_solver=True,
-                           **kw)
-    for i in range(2):
-        one = TL.reg_solve_kkt(_T(Hs[i:i + 1]), _T(gs[i:i + 1]), z[:1],
-                               z[:1] + 0.1, want_solver=True, **kw)
-        for a, b in zip(out[:3], one[:3]):
-            assert torch.equal(a[i], b[0])
-        r = _T(np.sin(np.arange(216.0)))
-        assert torch.equal(out[3](torch.stack([r, r]))[i], one[3](r[None])[0])
-
-
 @pytest.mark.parametrize("shape", [(300, 200), (200, 300)])
 def test_lstsq_minnorm_large_normal_matrix_matches_jax(rng, shape):
     """k = 200 > 128: the LU branch of both packages."""
