@@ -148,6 +148,7 @@ import numpy as np
 import torch
 
 SEED, B, D, NLIN = 42, 10_000, 16, 4
+QP_X0_SEED = 7
 N_CROSS = 64
 KERNEL_SHAPES = ((10_000, 16), (10_000, 36), (129, 36), (1, 16), (512, 128))
 # the sizes phase 16's buckets give kernels 1-2 (the condensed systems of
@@ -199,6 +200,7 @@ CROSS_D, CROSS_M = 1000, 64
 TPU_ERA_MEHROTRA_MEAN_ITERS = 4.38
 # phase 11: the configuration of tests/test_lbfgs_large.py:26-37
 LBFGS_D, LBFGS_M, LBFGS_MEM, LBFGS_SEED = 4096, 8, 8, 0
+LBFGS_CFG = dict(float_dtype="float64", lbfgs=LBFGS_MEM, niter=10, miter=60)
 # phase 12: the CLI runs, each with --seed 42
 CLI_RUNS = ([[str(n)] for n in range(1, 11)]
             + [[str(n), "--lbfgs", "4"] for n in (1, 4, 5, 10)]
@@ -223,6 +225,8 @@ MPC_NX, MPC_NU, MPC_T, BOX_D = 4, 2, 20, 16
 # timed solves, rows 0-15 held to the B = 1 card path and to the CPU path
 WIDE_PORTFOLIO = dict(B=1024, D=500)
 WIDE_TIMED, WIDE_ROWS = 3, 16
+# the rows of phase 26's fleet held to the JAX package (jax_reference/)
+WIDE_JAX_ROWS = 128
 # phase 16 holds each bucket on the card to the same solve_fleet call on the
 # CPU: x within this many (1 + |x|) where both converged.  The MPC bucket's
 # float32 stationarity test is decided by roundoff on some instances (its
@@ -243,6 +247,20 @@ CLASSIFIED_SIGNAL_SPLITS = {"maxent": (1415,)}
 # portfolio bucket on the CPU (ROADMAP Queue 3).  The MPC bucket's bound
 # everywhere.
 STOP_APART_XTOL = 1e-2
+# the JAX package's answers to the numpy-seeded cells of phases 4, 8, 10,
+# 11, 16 and 26, computed on the CPU by scripts/make_jax_reference.py and
+# held by hold_to_jax: x as CARD_CPU_XTOL and STOP_APART_XTOL hold phase 16
+# (a phase-16 bucket's own bound, 2e-3 in the other cells), f within
+# JAX_FTOL (1 + |f|) where both converged, the mean iteration count within
+# JAX_ITERS_RTOL of the reference's where it took the TPU dispatch
+JAX_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "jax_reference")
+JAX_FTOL, JAX_ITERS_RTOL = 1e-3, 0.05
+# instances whose signal may differ from the JAX package's, each classified
+# in ROADMAP Queue 3 and pinned by a CPU test (cell -> indices): maximum
+# entropy 1415 ends at -2 on the card only (D1, as in
+# CLASSIFIED_SIGNAL_SPLITS), the JAX package converges it on the CPU
+JAX_SIGNAL_SPLITS = {"mixed_maxent": (1415,)}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
@@ -935,6 +953,8 @@ def dense_path(solve, cfg, problem, data, device, counters, _sync):
                max_memory_bytes=torch.cuda.max_memory_allocated(device))
     if tuple(res.x.shape) != (Dd,) or not bool(torch.isfinite(res.x).all()):
         raise AssertionError("dense NLP solution is not a finite (D,) array")
+    out["jax"] = hold_to_jax(f"dense_{cfg.linear_solver}", res.signal,
+                             res.iter_count, res.fval, res.x)
     return out
 
 
@@ -1208,11 +1228,15 @@ def qp_fleet(cfg, device):
     data = sample_qp_batch(SEED, B, D, NLIN, dtype="float32", device=device)
     solve_batch(problem, torch.zeros((B, D), device=device), cfg,
                 params=data)                                     # warm-up
-    rng = np.random.default_rng(7)
-    x0 = torch.as_tensor(1e-6 * rng.standard_normal((B, D)),
-                         dtype=torch.float32, device=device)
+    x0 = torch.as_tensor(qp_x0(), device=device)
     torch.cuda.synchronize()
     return problem, data, x0
+
+
+def qp_x0():
+    """Phase 4's start: 1e-6 N(0, 1) from seed QP_X0_SEED, float32."""
+    rng = np.random.default_rng(QP_X0_SEED)
+    return (1e-6 * rng.standard_normal((B, D))).astype(np.float32)
 
 
 def mixed_buckets(device):
@@ -1334,6 +1358,104 @@ def card_against_cpu(name, res, ref, cpu_wall, against="CPU"):
     return out
 
 
+def jax_reference(cell):
+    """(manifest entry, arrays) of ``cell``'s file in JAX_REFERENCE, its
+    bytes checked against the manifest's sha256: a missing or stale file
+    raises."""
+    with open(os.path.join(JAX_REFERENCE, "MANIFEST.json")) as fh:
+        entry = json.load(fh)["cells"].get(cell)
+    if entry is None:
+        raise AssertionError(f"{cell}: not in jax_reference/MANIFEST.json "
+                             f"(scripts/make_jax_reference.py --cell {cell})")
+    with open(os.path.join(JAX_REFERENCE, entry["file"]), "rb") as fh:
+        blob = fh.read()
+    if hashlib.sha256(blob).hexdigest() != entry["sha256"]:
+        raise AssertionError(f"{cell}: jax_reference/{entry['file']} does "
+                             f"not match its sha256 in the manifest")
+    with np.load(io.BytesIO(blob)) as z:
+        return entry, {k: z[k] for k in z.files}
+
+
+def hold_to_jax(cell, signal, iters, f, x, rows=None):
+    """Hold a cell's results to the JAX package's (``jax_reference``),
+    instance by instance: signals equal except on JAX_SIGNAL_SPLITS; where
+    both converged, f within JAX_FTOL (1 + |f|) and, on the rows whose x
+    the reference keeps, x within the cell's CARD_CPU_XTOL (1 + |x|) at
+    equal iteration counts and STOP_APART_XTOL at different ones; the mean
+    iteration count within JAX_ITERS_RTOL of the reference's where it took
+    the TPU dispatch (recorded only where it took the CPU path).  ``rows``:
+    the reference's instances the results stand for (all by default)."""
+    t0 = time.perf_counter()
+    entry, ref = jax_reference(cell)
+
+    def host(t):
+        return np.asarray(t.detach().cpu() if torch.is_tensor(t) else t)
+
+    sg, ig, fg = (host(t).reshape(-1) for t in (signal, iters, f))
+    xg = host(x).reshape(sg.size, -1).astype(np.float64)
+    rows = np.arange(entry["instances"]) if rows is None else np.asarray(rows)
+    if rows.size != sg.size:
+        raise AssertionError(f"{cell}: {sg.size} results for {rows.size} "
+                             f"reference rows")
+    sr, ir = ref["signal"][rows], ref["iter_count"][rows].astype(np.int64)
+    fr = ref["f"][rows]
+    both = np.isin(sg, (1, 2)) & np.isin(sr, (1, 2))
+    df = np.abs(fg - fr) / (1.0 + np.abs(fr))
+    at = {int(r): i for i, r in enumerate(rows)}
+    pairs = [(at[int(r)], k) for k, r in enumerate(ref["x_rows"])
+             if int(r) in at]
+    gi = np.array([g for g, _ in pairs], dtype=np.int64)
+    xr = ref["x"][[k for _, k in pairs]].astype(np.float64)
+    dx = (np.abs(xg[gi] - xr) / (1.0 + np.abs(xr))).max(-1, initial=0.0)
+    xtol = CARD_CPU_XTOL.get(cell.removeprefix("mixed_"), 2e-3)
+    tol = np.where(ig[gi] == ir[gi], xtol, max(xtol, STOP_APART_XTOL))
+    held = both[gi]
+    x_beyond = {int(rows[g]): float(d)
+                for g, d, t, h in zip(gi, dx, tol, held) if h and d > t}
+    wide = {int(rows[g]): (float(d), int(ig[g]), int(ir[g]))
+            for g, d, h in zip(gi, dx, held) if h and xtol < d}
+    f_beyond = {int(rows[i]): float(df[i])
+                for i in np.flatnonzero(both & (df > JAX_FTOL))}
+    split = rows[sg != sr].tolist()
+    its_diff = rows[ig != ir].tolist()
+    mean_g, mean_r = float(ig.mean()), float(ir.mean())
+    kernel = entry["jax_path"] != "cpu"
+    out = dict(jax_path=entry["jax_path"],
+               signals_equal=int(np.sum(sg == sr)), signals_differ=split,
+               iters_equal=int(np.sum(ig == ir)), iters_differ=its_diff[:20],
+               x_rows_held=int(held.sum()),
+               max_rel_dx=float(dx[held].max()) if held.any() else 0.0,
+               max_rel_df=float(df[both].max()) if both.any() else 0.0,
+               stop_apart_beyond_xtol=wide, mean_iters=mean_g,
+               jax_mean_iters=mean_r, hold_s=time.perf_counter() - t0)
+    print(f"  {cell} against the JAX package ({entry['jax_path']}): "
+          f"signals equal {out['signals_equal']}/{sg.size}, differ at "
+          f"{split}; iterations equal {out['iters_equal']}/{sg.size}, "
+          f"differ first at {its_diff[:20]}; max |dx|/(1+|x|) "
+          f"{out['max_rel_dx']:.3e} over {out['x_rows_held']} rows, max "
+          f"|df|/(1+|f|) {out['max_rel_df']:.3e} where both converged; "
+          f"beyond {xtol} (held within {STOP_APART_XTOL} at other counts) "
+          f"at {{index: (dx, here, JAX iterations)}} {wide}; mean "
+          f"iterations {mean_g:.4f} here, {mean_r:.4f} JAX "
+          f"({'held' if kernel else 'recorded'}); {out['hold_s']:.3f} s",
+          flush=True)
+    unclassified = sorted(set(split) - set(JAX_SIGNAL_SPLITS.get(cell, ())))
+    if unclassified:
+        raise AssertionError(f"{cell}: signals differ from the JAX package's"
+                             f" at {unclassified}, classified nowhere "
+                             f"(ROADMAP Queue 3)")
+    if x_beyond or f_beyond:
+        raise AssertionError(f"{cell}: x beyond {xtol} (1+|x|) (or "
+                             f"{STOP_APART_XTOL} at other iteration counts) "
+                             f"at {x_beyond}; f beyond {JAX_FTOL} (1+|f|) at "
+                             f"{f_beyond}")
+    if kernel and abs(mean_g - mean_r) > JAX_ITERS_RTOL * mean_r:
+        raise AssertionError(f"{cell}: mean iterations {mean_g} against the "
+                             f"JAX package's {mean_r}, beyond "
+                             f"{JAX_ITERS_RTOL:.0%}")
+    return out
+
+
 def retype(data, leaves):
     """``leaves`` in ``data``'s container (a NamedTuple or a tuple)."""
     leaves = tuple(leaves)
@@ -1417,6 +1539,8 @@ def mixed_fleet_phase(cfg, device, counters, sl, ll, _sync):
         ref = solve_bucket(prob, data, x0b, cfg, torch.device("cpu"))
         rec["card_vs_cpu"] = card_against_cpu(name, res, ref,
                                               time.perf_counter() - t0)
+        rec["jax"] = hold_to_jax(f"mixed_{name}", res.signal, res.iter_count,
+                                 res.fval, res.x)
         if hit < 0.99:
             # f32 at this size: record, then the same bucket in f64
             cfg64 = cfg.replace(float_dtype="float64")
@@ -2245,6 +2369,9 @@ def wide_fleet_phase(cfg, device, counters, sl, ll, lin, _sync):
                              "has KKT > Ktol")
     if not k3.get(str(Bn)):
         raise AssertionError(f"kernel 3 was not launched at B = {Bn}: {k3}")
+    out["jax"] = hold_to_jax("wide_portfolio", *(
+        t[:WIDE_JAX_ROWS] for t in (res.signal, res.iter_count, res.fval,
+                                    res.x)))
     if hit < 0.99:
         # f32 at this size: record, then the same fleet in f64
         cfg64 = cfg.replace(float_dtype="float64")
@@ -2413,6 +2540,8 @@ def main() -> int:
     if not bool((res.kkt[conv] <= cfg.Ktol).all()):
         raise AssertionError("a Ktol-converged instance has KKT > Ktol")
     require_launched(launches, "fleet")
+    fleet["jax"] = hold_to_jax("qp_adaptive", res.signal, res.iter_count,
+                               res.fval, res.x)
 
     phase(f"5 plain path on CPU, first {N_CROSS} instances")
     data_cpu = type(data)(*(t[:N_CROSS].cpu() for t in data))
@@ -2519,7 +2648,9 @@ def main() -> int:
                     iters_per_s=mtotal / mwall,
                     flat_steps=mstats["flat_steps"],
                     host_syncs=mstats["host_syncs"], launches=mlaunches,
-                    cpu_cross_check=mcross)
+                    cpu_cross_check=mcross,
+                    jax=hold_to_jax("qp_mehrotra", mres.signal,
+                                    mres.iter_count, mres.fval, mres.x))
     del mres, mres_cpu
 
     phase(f"11 L-BFGS({LBFGS_MEM}) on the dense NLP D={LBFGS_D}, "
@@ -2527,8 +2658,7 @@ def main() -> int:
     # the configuration of tests/test_lbfgs_large.py:26-37; its instance
     # comes from jax.random.key(0), which cannot be drawn without JAX, so
     # the port's numpy sampler with seed LBFGS_SEED stands in for it
-    lcfg = IPMConfig(float_dtype="float64", verbosity=0, lbfgs=LBFGS_MEM,
-                     niter=10, miter=60)
+    lcfg = IPMConfig(**LBFGS_CFG, verbosity=0)
     lproblem = make_dense_nlp_problem(LBFGS_D, LBFGS_M)
     ldata = sample_dense_nlp(LBFGS_SEED, LBFGS_D, LBFGS_M, DENSE_H,
                              dtype="float64", device=device)
@@ -2555,6 +2685,8 @@ def main() -> int:
     if lbfgs["signal"] != 1 or lbfgs["kkt_max"] > lcfg.Ktol:
         raise AssertionError(f"L-BFGS dense NLP: signal {lbfgs['signal']}, "
                              f"KKT {lbfgs['kkt_max']}")
+    lbfgs["jax"] = hold_to_jax("dense_lbfgs", lres.signal, lres.iter_count,
+                               lres.fval, lres.x)
     require_launched(dict(sl.LAUNCHES), "L-BFGS dense NLP")
     del ldata
 

@@ -4,6 +4,8 @@ assets, 96 points of 8 features, 64 states with 2 moments, MPC with nx 4,
 nu 2 over 20 steps), drawn by the port's ``sample_*_arrays(42, 2048,
 ...)``, and both packages' batched solvers on the same numpy rows."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,22 +91,37 @@ def solve_port(name, arr, dtype="float32"):
 
 def solve_jax(name, arr, x0, dtype="float32", tpu_path=False):
     """The JAX package's batched solve.  ``tpu_path``: the dispatch it
-    takes on a TPU (the Pallas factor and solve kernels for f32 systems
-    of n <= 64, pallas_ldlt.py:319-331), run in interpret mode as its own
-    kernel tests run them on the CPU; otherwise its CPU path (the unrolled
+    takes on a TPU (``kernel_path``); otherwise its CPU path (the unrolled
     factor and ``ldlt_solve_inv``)."""
     _, _, jcls, _, jbatch, _ = FAMILIES[name]
     jdata = jcls(*(jnp.asarray(arr[k]) for k in jcls._fields))
     fn = jbatch(JCfg(float_dtype=dtype, verbosity=0, Ktol=KTOL))
     if not tpu_path:
         return fn(jnp.asarray(x0), jdata)
+    with kernel_path():
+        return jax.block_until_ready(fn(jnp.asarray(x0), jdata))
+
+
+@contextlib.contextmanager
+def kernel_path():
+    """The JAX package's TPU dispatch for what is traced inside: the Pallas
+    factor and solve kernels for f32 systems of n <= 64
+    (pallas_ldlt.py:319-331), run in interpret mode as its own kernel
+    tests run them on the CPU.  Yields a list that gets one entry each
+    time a batched factor or solve is sent to a kernel."""
     from jax.experimental.pallas import tpu as pltpu
-    dispatch = pk._lane_dispatch
-    pk._lane_dispatch = (lambda n, batch, dt: dt == jnp.float32
-                         and n <= pk.LANE_MAX_N)
+    dispatch, seen = pk._lane_dispatch, []
+
+    def lane(n, batch, dt):
+        use = dt == jnp.float32 and n <= pk.LANE_MAX_N
+        if use:
+            seen.append(n)
+        return use
+
+    pk._lane_dispatch = lane
     try:
         with pltpu.force_tpu_interpret_mode():
-            return jax.block_until_ready(fn(jnp.asarray(x0), jdata))
+            yield seen
     finally:
         pk._lane_dispatch = dispatch
 
