@@ -103,6 +103,11 @@ Phases, each raising on failure:
      this path), the peak allocation under 2 GiB; the same family at d =
      4,096 in float64 on the card and on the CPU (signal and iterations
      equal, x within 1e-8); examples/block_lbfgs_and_ragged.py;
+     phases 21-25 draw their instances on the host with the port's numpy
+     samplers (BLOCK_CELLS: one seed a cell) and hold every solve, the
+     resumed one, both rank counts and phase 25's CPU side too, to the
+     JAX package's answer to the same arrays (``hold_block_to_jax``
+     against ``jax_reference/``, the arrays' sha256 first);
  26. 1,024 Markowitz portfolios of 500 assets (WIDE_PORTFOLIO) through
      ``solve_batch`` in float32: condensed systems of K = 501, the batched
      K > 128 path (kernel 3 at (1024, 128, 128), which must launch); hit
@@ -257,10 +262,14 @@ JAX_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "jax_reference")
 JAX_FTOL, JAX_ITERS_RTOL = 1e-3, 0.05
 # instances whose signal may differ from the JAX package's, each classified
-# in ROADMAP Queue 3 and pinned by a CPU test (cell -> indices): maximum
-# entropy 1415 ends at -2 on the card only (D1, as in
-# CLASSIFIED_SIGNAL_SPLITS), the JAX package converges it on the CPU
-JAX_SIGNAL_SPLITS = {"mixed_maxent": (1415,)}
+# in ROADMAP Queue 3 (cell -> indices; a Schur cell's one solve is index
+# 0): maximum entropy 1415 ends at -2 on the card only (D1, as in
+# CLASSIFIED_SIGNAL_SPLITS, pinned by a CPU test), the JAX package
+# converges it on the CPU; the 256 x 1024 separable solve in float32 (D4)
+# stops at signal 1 on the card where the JAX package's f32 stationarity
+# norm stalls at 1.05 Ktol until -1, float32 evaluating it with an error
+# of ~1.5 Ktol there
+JAX_SIGNAL_SPLITS = {"mixed_maxent": (1415,), "schur_large": (0,)}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
@@ -1711,6 +1720,66 @@ RANKS_K, RANKS_TIMEOUT_S = 8192, 400         # phase 24: 4,096 a rank
 LBFGS_BLOCK = dict(K=8, d=65_536, p=4, mem=8, seed=5)
 LBFGS_CROSS_D = 4096                           # card against CPU, float64
 LBFGS_PEAK_LIMIT = 2 << 30                     # bytes
+# phases 21-25 draw every instance on the host from the port's numpy
+# samplers, one seed a cell, and hold_block_to_jax holds each solve to the
+# JAX package's answer to the same arrays (jax_reference/<cell>.npz,
+# scripts/make_jax_reference.py): "instance" the sampler's arguments,
+# "config" the IPMConfig of both packages' solves
+_F32 = dict(float_dtype="float32", verbosity=0, Ktol=1e-4)
+_NO_REFINE = dict(schur_refine_steps=0, schur_refine_guard=False)
+_LBFGS = dict(verbosity=0, lbfgs=LBFGS_BLOCK["mem"], niter=20, miter=60)
+_RESOURCE = dict(K=RESOURCE_K, d=RESOURCE_D, nres=4, neq=1)
+_GENERAL = dict(K=GENERAL_K, d=3, me=1, ni=2, p=2, mc=1)
+BLOCK_CELLS = dict(
+    schur_weak=dict(phase=21, family="separable", instance=WEAK, seed=SEED,
+                    config=dict(_F32, **_NO_REFINE)),
+    schur_large=dict(phase=22, family="separable", instance=LARGE,
+                     seed=SEED + 1, config=_F32),
+    resource_ineq_adaptive=dict(
+        phase=23, family="resource", instance=dict(_RESOURCE, cap="ineq"),
+        seed=SEED + 2, config=dict(_F32, mu_strategy="adaptive")),
+    resource_ineq_mehrotra=dict(
+        phase=23, family="resource", instance=dict(_RESOURCE, cap="ineq"),
+        seed=SEED + 2, config=dict(_F32, mu_strategy="mehrotra")),
+    resource_eq_f64=dict(
+        phase=23, family="resource", instance=dict(_RESOURCE, cap="eq"),
+        seed=SEED + 2, config=dict(_F32, float_dtype="float64",
+                                   mu_strategy="adaptive")),
+    block_general_nonlinear=dict(
+        phase=23, family="general",
+        instance=dict(_GENERAL, nonlinear_cc=True), seed=SEED + 3,
+        config=_F32),
+    block_general_linear=dict(
+        phase=23, family="general",
+        instance=dict(_GENERAL, nonlinear_cc=False), seed=SEED + 4,
+        config=_F32),
+    block_ragged=dict(phase=23, family="ragged",
+                      instance=dict(K=GENERAL_K, d=4, me=2, ni=3, p=2, mc=1),
+                      seed=SEED + 5, config=_F32),
+    schur_ranks=dict(phase=24, family="separable",
+                     instance=dict(K=RANKS_K, d=WEAK["d"], mc=WEAK["mc"]),
+                     seed=SEED + 6, config=dict(_F32, **_NO_REFINE)),
+    lbfgs_block=dict(
+        phase=25, family="box_quadratic",
+        instance={k: LBFGS_BLOCK[k] for k in ("K", "d", "p")},
+        seed=LBFGS_BLOCK["seed"], config=dict(_LBFGS, float_dtype="float32")),
+    lbfgs_block_f64=dict(
+        phase=25, family="box_quadratic",
+        instance=dict(K=LBFGS_BLOCK["K"], d=LBFGS_CROSS_D,
+                      p=LBFGS_BLOCK["p"]),
+        seed=LBFGS_BLOCK["seed"], config=dict(_LBFGS, float_dtype="float64")),
+)
+# the x a block cell's reference keeps: whole blocks from block 0 up to
+# this many values, or the first BLOCK_X_VALUES / K entries of every block
+# where one block is larger
+BLOCK_X_VALUES = 16_384
+# a float64 block cell: x (and lc, f) within this many (1 + |.|) of the
+# JAX package's at equal signals and iterations (phase 25's card-against-
+# CPU bound)
+BLOCK_F64_TOL = 1e-8
+# a float32 block cell: x and the coupling multipliers within this many
+# (1 + |.|) at equal iteration counts (STOP_APART_XTOL at others)
+BLOCK_F32_XTOL = 2e-3
 
 
 @contextlib.contextmanager
@@ -1929,6 +1998,165 @@ def schur_factor_phase(lin, sl, ll, cfg, device):
     return out, rec
 
 
+def draw_block(cell):
+    """A Schur cell's instance on the host, drawn by the port's numpy
+    sampler of its family: {"theta": ..., "ccdata": ...}, or the fields
+    of ``SeparableData`` for the separable family."""
+    from pyipm_tpu_torch.models import applications as A
+    from pyipm_tpu_torch.parallel import schur as S
+    c = BLOCK_CELLS[cell]
+    z, seed = c["instance"], c["seed"]
+    dt = np.dtype(c["config"]["float_dtype"])
+    if c["family"] == "separable":
+        return S.sample_separable_arrays(seed, z["K"], z["d"], z["mc"], dt)
+    if c["family"] == "resource":
+        th, cc = A.sample_resource_alloc_arrays(seed, z["K"], z["d"],
+                                                z["nres"], z["neq"], dt)
+    elif c["family"] == "general":
+        th, cc = S.sample_block_general_arrays(
+            seed, z["K"], z["d"], z["me"], z["ni"], z["p"], dt)
+    elif c["family"] == "ragged":
+        th, cc, _, _ = S.sample_block_ragged_arrays(
+            seed, z["K"], z["d"], z["me"], z["ni"], z["p"], dt)
+    else:
+        th, cc = S.sample_block_box_quadratic_arrays(seed, z["K"], z["d"],
+                                                     z["p"], dt)
+    return dict(theta=th, ccdata=cc)
+
+
+def input_digests(arrays, prefix=""):
+    """{"theta/Q": sha256 of the array's dtype, shape and bytes, ...} of
+    a nested dict of numpy arrays."""
+    out = {}
+    for k, v in arrays.items():
+        if isinstance(v, dict):
+            out.update(input_digests(v, f"{prefix}{k}/"))
+        else:
+            v = np.ascontiguousarray(v)
+            h = hashlib.sha256(f"{v.dtype.str}{v.shape}".encode())
+            h.update(memoryview(v).cast("B"))
+            out[prefix + k] = h.hexdigest()
+    return out
+
+
+def block_problem(cell, arrays, device):
+    """(spec, theta, ccdata, x0) of a Schur cell for the port's
+    ``make_block_solver`` on ``device``, from ``draw_block``'s arrays."""
+    from pyipm_tpu_torch import interop
+    from pyipm_tpu_torch.models import applications as A
+    from pyipm_tpu_torch.parallel import schur as S
+    c = BLOCK_CELLS[cell]
+    z = c["instance"]
+    dt = getattr(torch, c["config"]["float_dtype"])
+    x0 = torch.zeros((z["K"], z["d"]), dtype=dt, device=device)
+    if c["family"] == "separable":
+        data = interop.separable_data_from_numpy(arrays, device=device)
+        return (S.separable_block_spec(S.separable_spec(z["d"], z["mc"])),
+                {"user": data.theta, "A": data.A, "lb": data.lb},
+                {"b": data.b}, x0)
+    th, cc = interop.block_data_from_numpy(arrays["theta"],
+                                           arrays["ccdata"], device=device)
+    if c["family"] == "resource":
+        return (A.make_resource_alloc_spec(z["d"], z["nres"], z["neq"],
+                                           cap=z["cap"]), th, cc, x0 + 1)
+    if c["family"] == "general":
+        spec = S.block_general_spec(z["d"], z["me"], z["ni"], z["p"],
+                                    z["mc"], nonlinear_cc=z["nonlinear_cc"])
+    elif c["family"] == "ragged":
+        spec = S.block_ragged_spec(z["d"], z["me"], z["ni"], z["p"],
+                                   z["mc"])
+    else:
+        spec = S.block_box_quadratic_spec(z["d"], z["p"])
+    return spec, th, cc, x0
+
+
+def block_x_layout(K, d):
+    """(blocks, entries a block) of the x a block cell's reference keeps:
+    whole blocks from block 0 up to BLOCK_X_VALUES values, or the first
+    BLOCK_X_VALUES // K entries of every block where d is larger."""
+    if d <= BLOCK_X_VALUES:
+        return min(K, BLOCK_X_VALUES // d), d
+    return K, BLOCK_X_VALUES // K
+
+
+def hold_block_to_jax(cell, digests, res, what="the card"):
+    """Hold one Schur solve (a result with signal, iter_count, fval, x, lc
+    and lci) to the JAX package's answer (``jax_reference``): first the
+    instance, ``digests`` (``input_digests`` of the arrays the phase
+    drew) against the manifest's; then the signal equal (unless
+    JAX_SIGNAL_SPLITS classifies the cell's solve, index 0); in float64
+    the iteration count equal and x, the coupling multipliers and f within
+    BLOCK_F64_TOL (1 + |.|); in float32 x and the coupling multipliers
+    within BLOCK_F32_XTOL (1 + |.|) at equal iteration counts and
+    STOP_APART_XTOL at others, f within JAX_FTOL (1 + |f|), the counts
+    printed beside the reference's and not held.  Where the signals split
+    as classified, x, the multipliers and f are still held, within
+    STOP_APART_XTOL."""
+    t0 = time.perf_counter()
+    entry, ref = jax_reference(cell)
+    bad = {k: (v, digests.get(k)) for k, v in entry["inputs"].items()
+           if digests.get(k) != v}
+    if bad or set(digests) != set(entry["inputs"]):
+        raise AssertionError(f"{cell}: the drawn instance is not the "
+                             f"reference's (sha256 of {sorted(bad)}, arrays "
+                             f"{sorted(digests)})")
+
+    def host(t):
+        t = t.detach().cpu() if torch.is_tensor(t) else t
+        return np.asarray(t, dtype=np.float64)
+
+    sg, ig = int(res.signal), int(res.iter_count)
+    sr, ir = int(ref["signal"]), int(ref["iter_count"])
+    fg, fr = float(res.fval), float(ref["f"])
+    nb, nc = ref["x"].shape
+    xg, xr = host(res.x)[:nb, :nc], ref["x"].astype(np.float64)
+    mult = [(host(getattr(res, k)).reshape(-1), ref[k].astype(np.float64))
+            for k in ("lc", "lci")]
+    f64 = entry["dtype"] == "float64"
+    if f64:
+        xtol = ftol = BLOCK_F64_TOL
+    else:
+        xtol = BLOCK_F32_XTOL if (ig, sg) == (ir, sr) else max(
+            BLOCK_F32_XTOL, STOP_APART_XTOL)
+        ftol = JAX_FTOL
+
+    def rel(a, b):
+        if a.shape != b.shape:
+            raise AssertionError(f"{cell}: shape {a.shape} against the "
+                                 f"reference's {b.shape}")
+        return float((np.abs(a - b) / (1.0 + np.abs(b))).max(initial=0.0))
+
+    dx, dl = rel(xg, xr), max(rel(a, b) for a, b in mult)
+    df = abs(fg - fr) / (1.0 + abs(fr))
+    out = dict(jax_path=entry["jax_path"], signal=sg, jax_signal=sr,
+               iters=ig, jax_iters=ir, max_rel_dx=dx, max_rel_dlc=dl,
+               rel_df=df, x_values_held=int(xr.size), xtol=xtol,
+               hold_s=time.perf_counter() - t0)
+    print(f"  {cell}, {what} against the JAX package ({entry['jax_path']})"
+          f": inputs equal ({len(digests)} sha256); signal {sg}, JAX {sr}; "
+          f"iterations {ig}, JAX {ir} ({'held' if f64 else 'recorded'}); "
+          f"max |dx|/(1+|x|) {dx:.3e} over {xr.size} values, coupling "
+          f"multipliers {dl:.3e}, |df|/(1+|f|) {df:.3e} (held within "
+          f"{xtol}, f {ftol}); kkt "
+          f"{np.array2string(host(res.kkt), precision=3)}, JAX "
+          f"{np.array2string(ref['kkt'], precision=3)}; "
+          f"{out['hold_s']:.3f} s", flush=True)
+    classified = sg != sr and 0 in JAX_SIGNAL_SPLITS.get(cell, ())
+    if sg != sr and not classified:
+        raise AssertionError(f"{cell}: signal {sg} against the JAX "
+                             f"package's {sr}, classified nowhere (ROADMAP "
+                             f"Queue 3)")
+    if f64 and ig != ir:
+        raise AssertionError(f"{cell}: {ig} iterations against the JAX "
+                             f"package's {ir} in float64")
+    held = classified or (sg in (1, 2) and sr in (1, 2))
+    if held and (dx > xtol or dl > xtol or df > ftol):
+        raise AssertionError(f"{cell}: x {dx}, coupling multipliers {dl} "
+                             f"beyond {xtol} (1+|.|) or f {df} beyond "
+                             f"{ftol} (1+|f|)")
+    return out
+
+
 def block_solve(fn, x0, theta, ccdata, counters, sl, ll, _sync, what,
                 signals=(1,), profile_iters=3):
     """One timed solve of a block solver (its counters reset just before),
@@ -1976,22 +2204,25 @@ def block_solve(fn, x0, theta, ccdata, counters, sl, ll, _sync, what,
     return res, out
 
 
-def separable_phase(S, cfg, inst, counters, sl, ll, _sync, device,
+def separable_phase(S, cell, counters, sl, ll, _sync, device,
                     need_k1=False, need_k3=False):
-    """Phases 21-22: ``sample_separable`` at K, d, mc through the
-    separable solver, world size 1, in ``cfg``'s dtype."""
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    spec, data, x0 = S.sample_separable(gen, inst["K"], inst["d"],
-                                        inst["mc"], dtype=cfg.torch_dtype,
-                                        device=device)
-    fn = S.make_block_solver(S.separable_block_spec(spec), None, cfg,
-                             device=device)
-    theta = {"user": data.theta, "A": data.A, "lb": data.lb}
+    """Phases 21-22: the separable cell ``cell`` (BLOCK_CELLS), drawn by
+    ``sample_separable_arrays`` on the host, through the separable solver
+    at world size 1, held to the JAX package's answer."""
+    from pyipm_tpu_torch import IPMConfig
+    inst = BLOCK_CELLS[cell]["instance"]
+    cfg = IPMConfig(**BLOCK_CELLS[cell]["config"])
+    arrays = draw_block(cell)
+    digests = input_digests(arrays)
+    _, theta, cc, x0 = block_problem(cell, arrays, device)
+    del arrays
+    fn = S.make_block_solver(S.separable_block_spec(S.separable_spec(
+        inst["d"], inst["mc"])), None, cfg, device=device)
     torch.cuda.reset_peak_memory_stats()
-    res, out = block_solve(fn, x0, theta, {"b": data.b}, counters, sl, ll,
-                           _sync, f"K={inst['K']} d={inst['d']} "
-                           f"mc={inst['mc']} ({inst['K'] * inst['d']} "
-                           f"variables, {cfg.float_dtype})")
+    res, out = block_solve(fn, x0, theta, cc, counters, sl, ll, _sync,
+                           f"K={inst['K']} d={inst['d']} mc={inst['mc']} "
+                           f"({inst['K'] * inst['d']} variables, "
+                           f"{cfg.float_dtype})")
     if need_k1 and not out["kernel1_by_n"].get("factor", {}).get(
             str(inst["d"])):
         raise AssertionError(f"kernel 1 was not launched at n = {inst['d']}:"
@@ -1999,11 +2230,12 @@ def separable_phase(S, cfg, inst, counters, sl, ll, _sync, device,
     if need_k3 and not out["kernel3_by_b"].get(str(inst["K"])):
         raise AssertionError(f"the batched kernel 3 was not launched at B = "
                              f"{inst['K']}: {out['kernel3_by_b']}")
-    del res, data, theta
+    out["jax"] = hold_block_to_jax(cell, digests, res)
+    del res, theta
     return out
 
 
-def general_phase(S, A, cfg, counters, sl, ll, _sync, device):
+def general_phase(S, counters, sl, ll, _sync, device):
     """Phase 23: resource allocation (16,384 agents x 16 variables, 4
     resources, 1 equality: n = 17) with a cap under 'adaptive' and
     'mehrotra', and with a binding pool in float64 (in float32 the JAX
@@ -2011,69 +2243,51 @@ def general_phase(S, A, cfg, counters, sl, ll, _sync, device):
     the pool rows of R_k ~ 1/(K d), ROADMAP Queue 3); the general block
     NLP (K = 16,384, d = 3) with nonlinear and with linear coupling; the
     ragged one; and the capped one paused by run_budget(3), saved,
-    restored and resumed."""
-    gen = torch.Generator(device=device).manual_seed(SEED)
+    restored and resumed.  Every instance drawn on the host by its numpy
+    sampler, every solve held to the JAX package's answer."""
+    from pyipm_tpu_torch import IPMConfig
     out = {}
     ok = (1, 2)
-    data = A.sample_resource_alloc(gen, RESOURCE_K, RESOURCE_D, nres=4,
-                                   neq=1, device=device)
-    rx0 = torch.ones((RESOURCE_K, RESOURCE_D), device=device)
-    f64 = A.ResourceAllocData(
-        {k: v.double() for k, v in data.theta.items()},
-        {k: v.double() for k, v in data.ccdata.items()})
-    for cap, strat, dat, x0, c in (
-            ("ineq", "adaptive", data, rx0, cfg),
-            ("ineq", "mehrotra", data, rx0, cfg),
-            ("eq", "adaptive", f64, rx0.double(),
-             cfg.replace(float_dtype="float64"))):
-        name = f"resource_{cap}_{strat}_{c.float_dtype}"
-        fn = S.make_block_solver(
-            A.make_resource_alloc_spec(RESOURCE_D, 4, 1, cap=cap), None,
-            c.replace(mu_strategy=strat), device=device)
-        res, out[name] = block_solve(fn, x0, dat.theta, dat.ccdata,
-                                     counters, sl, ll, _sync,
-                                     f"resource allocation cap={cap} "
-                                     f"{strat} {c.float_dtype}", signals=ok)
-        if not out[name]["kernel1_by_n"].get("factor", {}).get("17"):
-            raise AssertionError(f"{name}: kernel 1 was not launched at "
-                                 f"n = 17")
-        pool = torch.einsum("krd,kd->r", dat.theta["R"], res.x)
-        over = float((pool - dat.ccdata["budget"]).abs().max() if cap == "eq"
-                     else (pool - dat.ccdata["budget"]).max())
-        if over > 1e-3 * float(dat.ccdata["budget"].abs().max()):
-            raise AssertionError(f"{name}: the pool is off by {over}")
-    for name, kw in (("general_nonlinear", dict(nonlinear_cc=True)),
-                     ("general_linear", dict(nonlinear_cc=False))):
-        spec, th, cc, x0 = S.sample_block_general(
-            gen, GENERAL_K, 3, me=1, ni=2, p=2, mc=1, dtype=torch.float32,
-            device=device, **kw)
-        fn = S.make_block_solver(spec, None, cfg, device=device)
-        _, out[name] = block_solve(fn, x0, th, cc, counters, sl, ll, _sync,
-                                   f"block NLP K={GENERAL_K} d=3 {name}",
-                                   signals=ok)
-    spec, th, cc, x0, _, _ = S.sample_block_ragged(
-        gen, GENERAL_K, dtype=torch.float32, device=device)
-    fn = S.make_block_solver(spec, None, cfg, device=device)
-    _, out["ragged"] = block_solve(fn, x0, th, cc, counters, sl, ll, _sync,
-                                   f"ragged block NLP K={GENERAL_K}",
-                                   signals=ok)
+    for cell in ("resource_ineq_adaptive", "resource_ineq_mehrotra",
+                 "resource_eq_f64", "block_general_nonlinear",
+                 "block_general_linear", "block_ragged"):
+        c = IPMConfig(**BLOCK_CELLS[cell]["config"])
+        z = BLOCK_CELLS[cell]["instance"]
+        arrays = draw_block(cell)
+        digests = input_digests(arrays)
+        spec, th, cc, x0 = block_problem(cell, arrays, device)
+        fn = S.make_block_solver(spec, None, c, device=device)
+        what = (f"resource allocation cap={z['cap']} {c.mu_strategy} "
+                f"{c.float_dtype}" if "cap" in z else
+                f"block NLP K={z['K']} d={z['d']} {cell}")
+        res, out[cell] = block_solve(fn, x0, th, cc, counters, sl, ll,
+                                     _sync, what, signals=ok)
+        if "cap" in z:
+            if not out[cell]["kernel1_by_n"].get("factor", {}).get("17"):
+                raise AssertionError(f"{cell}: kernel 1 was not launched "
+                                     f"at n = 17")
+            pool = torch.einsum("krd,kd->r", th["R"], res.x)
+            over = float((pool - cc["budget"]).abs().max()
+                         if z["cap"] == "eq" else (pool - cc["budget"]).max())
+            if over > 1e-3 * float(cc["budget"].abs().max()):
+                raise AssertionError(f"{cell}: the pool is off by {over}")
+        out[cell]["jax"] = hold_block_to_jax(cell, digests, res)
+        if cell == "resource_ineq_adaptive":
+            kept = fn, th, cc, x0, digests
 
     # pause -> save -> restore -> resume the capped resource allocation
     from pyipm_tpu_torch.utils.checkpoint import restore_state, save_state
-    fn = S.make_block_solver(
-        A.make_resource_alloc_spec(RESOURCE_D, 4, 1, cap="ineq"), None, cfg,
-        device=device)
-    straight = out["resource_ineq_adaptive_float32"]
-    st = fn.run_budget(fn.init_state(rx0, data.theta, data.ccdata),
-                       data.theta, data.ccdata, max_new_iters=BUDGET)
+    cell = "resource_ineq_adaptive"
+    fn, th, cc, x0, digests = kept
+    straight = out[cell]
+    st = fn.run_budget(fn.init_state(x0, th, cc), th, cc,
+                       max_new_iters=BUDGET)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "block")
         save_state(path, st)
         nbytes = os.path.getsize(path + ".npz")
-        st2 = restore_state(path, fn.init_state(rx0, data.theta,
-                                                data.ccdata))
-    res = fn.finalize(fn.run(st2, data.theta, data.ccdata), data.theta,
-                      data.ccdata)
+        st2 = restore_state(path, fn.init_state(x0, th, cc))
+    res = fn.finalize(fn.run(st2, th, cc), th, cc)
     resumed = dict(signal=int(res.signal), iters=int(res.iter_count),
                    checkpoint_bytes=nbytes)
     print(f"  capped resource allocation paused at {BUDGET}, saved "
@@ -2084,6 +2298,8 @@ def general_phase(S, A, cfg, counters, sl, ll, _sync, device):
                                                  straight["iters"]):
         raise AssertionError("the resumed block solve differs from the "
                              "straight one")
+    resumed["jax"] = hold_block_to_jax(cell, digests, res,
+                                       "the resumed solve")
     out["resumed"] = resumed
     return out
 
@@ -2091,35 +2307,35 @@ def general_phase(S, A, cfg, counters, sl, ll, _sync, device):
 def rank_worker(out_path, device="cuda"):
     """Phase 24's worker, one rank of ``launch --spawn N``: joins on gloo
     (NCCL refuses two ranks on one card; gloo all-reduces the card's
-    tensors through the host), solves phase 21's instance at K = RANKS_K
-    split over the ranks, one iteration at a time to count each
+    tensors through the host), draws the whole ``schur_ranks`` instance,
+    solves it split over the ranks, one iteration at a time to count each
     iteration's all-reduces, and rank 0 writes the result."""
-    from pyipm_tpu_torch import IPMConfig
     from pyipm_tpu_torch.parallel import distributed as dist
     from pyipm_tpu_torch.parallel import schur as S
     device = torch.device(device)
     dist.initialize(device=device, backend="gloo")
     mesh = dist.global_solver_mesh(batch=1, model=dist.world_size(),
                                    device=device)
-    out = ranks_solve(S, IPMConfig(float_dtype="float32", verbosity=0),
-                      mesh, device)
+    out = ranks_solve(S, mesh, device)
     if dist.rank() == 0:
         np.savez(out_path, **out)
     dist.shutdown()
 
 
-def ranks_solve(S, cfg, mesh, device):
-    """Phase 21's instance at K = RANKS_K (its refinement setting), solved
-    one inner iteration at a time: x, signal, iterations, wall and the
-    all-reduces of each iteration."""
-    cfg = cfg.replace(schur_refine_steps=0, schur_refine_guard=False)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    spec, data, x0 = S.sample_separable(gen, RANKS_K, WEAK["d"], WEAK["mc"],
-                                        device=device)
-    fn = S.make_block_solver(S.separable_block_spec(spec), mesh, cfg,
-                             device=device)
-    theta, cc = {"user": data.theta, "A": data.A, "lb": data.lb}, \
-        {"b": data.b}
+def ranks_solve(S, mesh, device):
+    """The ``schur_ranks`` cell (phase 21's family at K = RANKS_K, without
+    refinement), drawn whole on the host by ``sample_separable_arrays``
+    (each rank solves its share of the blocks), solved one inner
+    iteration at a time: x, f, the coupling multipliers, signal,
+    iterations, wall, the all-reduces of each iteration and the input
+    digests."""
+    from pyipm_tpu_torch import IPMConfig
+    cell = "schur_ranks"
+    cfg = IPMConfig(**BLOCK_CELLS[cell]["config"])
+    arrays = draw_block(cell)
+    digests = input_digests(arrays)
+    spec, theta, cc, x0 = block_problem(cell, arrays, device)
+    fn = S.make_block_solver(spec, mesh, cfg, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2132,16 +2348,30 @@ def ranks_solve(S, cfg, mesh, device):
     res = fn.finalize(st, theta, cc)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return dict(x=res.x.cpu().numpy(), signal=int(res.signal),
+    return dict(x=res.x.cpu().numpy(), fval=float(res.fval),
+                lc=res.lc.cpu().numpy(), lci=res.lci.cpu().numpy(),
+                kkt=res.kkt.cpu().numpy(), signal=int(res.signal),
                 iters=int(res.iter_count), calls=np.asarray(calls),
-                wall_s=time.perf_counter() - t0)
+                wall_s=time.perf_counter() - t0,
+                digests=json.dumps(digests))
 
 
-def ranks_phase(S, cfg, device):
-    """Phase 24: two ranks on the card through the launcher (gloo), phase
-    21's instance at K = 8,192 against one process, and the batch-axis
-    fleet of examples/distributed_fleet.py at 2 ranks against 1."""
-    one = ranks_solve(S, cfg, None, device)
+def _ranks_result(r):
+    """A ``ranks_solve`` record as the fields ``hold_block_to_jax``
+    reads."""
+    import types
+    return types.SimpleNamespace(
+        signal=int(r["signal"]), iter_count=int(r["iters"]),
+        fval=float(r["fval"]), x=r["x"], lc=r["lc"], lci=r["lci"],
+        kkt=r["kkt"])
+
+
+def ranks_phase(S, device):
+    """Phase 24: two ranks on the card through the launcher (gloo), the
+    ``schur_ranks`` cell (phase 21's family at K = 8,192) against one
+    process and both against the JAX package, and the batch-axis fleet
+    of examples/distributed_fleet.py at 2 ranks against 1."""
+    one = ranks_solve(S, None, device)
     repo = os.path.dirname(os.path.abspath(__file__))
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2191,6 +2421,14 @@ def ranks_phase(S, cfg, device):
                              f"{dx}")
     if out["all_reduces_per_iter_1"] != out["all_reduces_per_iter_2"]:
         raise AssertionError("two ranks asked for other all-reduces")
+    digests = json.loads(one["digests"])
+    if json.loads(str(two["digests"])) != digests:
+        raise AssertionError("rank 0 drew another instance than the one "
+                             "process")
+    out["jax_1"] = hold_block_to_jax("schur_ranks", digests,
+                                     _ranks_result(one), "one rank")
+    out["jax_2"] = hold_block_to_jax("schur_ranks", digests,
+                                     _ranks_result(two), "two ranks")
     same = all(np.array_equal(fleets[1][k], fleets[2][k])
                for k in ("signal", "iter_count"))
     out["fleet_equal"] = same
@@ -2211,15 +2449,19 @@ def lbfgs_block_phase(S, counters, sl, ll, _sync, device):
     float32): signal 1 or 2, no kernel launched, the peak allocation
     under LBFGS_PEAK_LIMIT; the same family at d = LBFGS_CROSS_D in
     float64 on the card and on the CPU (signal and iterations equal, x
-    within 1e-8); and examples/block_lbfgs_and_ragged.py on the card."""
+    within 1e-8), each held to the JAX package's answer (the CPU's too);
+    and examples/block_lbfgs_and_ragged.py on the card.  The instances
+    are ``lbfgs_block`` and ``lbfgs_block_f64`` of BLOCK_CELLS, drawn on
+    the host by ``sample_block_box_quadratic_arrays``."""
     from pyipm_tpu_torch import IPMConfig
     from pyipm_tpu_torch.examples import block_lbfgs_and_ragged
-    K, d, p = LBFGS_BLOCK["K"], LBFGS_BLOCK["d"], LBFGS_BLOCK["p"]
-    cfg = IPMConfig(float_dtype="float32", verbosity=0,
-                    lbfgs=LBFGS_BLOCK["mem"], niter=20, miter=60)
-    gen = torch.Generator(device=device).manual_seed(LBFGS_BLOCK["seed"])
-    spec, theta, ccdata, x0 = S.sample_block_box_quadratic(
-        gen, K, d, p, dtype=torch.float32, device=device)
+    cell = "lbfgs_block"
+    K, d, p = (BLOCK_CELLS[cell]["instance"][k] for k in ("K", "d", "p"))
+    cfg = IPMConfig(**BLOCK_CELLS[cell]["config"])
+    arrays = draw_block(cell)
+    digests = input_digests(arrays)
+    spec, theta, ccdata, x0 = block_problem(cell, arrays, device)
+    del arrays
     fn = S.make_block_solver(spec, None, cfg, device=device)
     # the first calls of this path's library routines load their modules:
     # an initial state and 2 iterations first, so the timed solve is warm
@@ -2229,9 +2471,9 @@ def lbfgs_block_phase(S, counters, sl, ll, _sync, device):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    _, out = block_solve(fn, x0, theta, ccdata, counters, sl, ll, _sync,
-                         f"L-BFGS({cfg.lbfgs}) K={K} d={d} mc={p} "
-                         f"({K * d} variables, float32)", signals=(1, 2))
+    res, out = block_solve(fn, x0, theta, ccdata, counters, sl, ll, _sync,
+                           f"L-BFGS({cfg.lbfgs}) K={K} d={d} mc={p} "
+                           f"({K * d} variables, float32)", signals=(1, 2))
     out["warm_up_s"] = warm_s
     dense_bytes = K * d * d * 4
     its = max(out["iters"], 1)
@@ -2248,13 +2490,15 @@ def lbfgs_block_phase(S, counters, sl, ll, _sync, device):
     if not out["max_memory_bytes"] < LBFGS_PEAK_LIMIT:
         raise AssertionError(f"peak allocation {out['max_memory_bytes']} B "
                              f">= {LBFGS_PEAK_LIMIT} B")
-    del theta, ccdata, x0, fn
+    out["jax"] = hold_block_to_jax(cell, digests, res)
+    del theta, ccdata, x0, fn, res
 
     # the card against the CPU path on the same data, float64
-    c64 = cfg.replace(float_dtype="float64")
-    gen = torch.Generator(device=device).manual_seed(LBFGS_BLOCK["seed"])
-    spec, theta, ccdata, x0 = S.sample_block_box_quadratic(
-        gen, K, LBFGS_CROSS_D, p, dtype=torch.float64, device=device)
+    cell = "lbfgs_block_f64"
+    c64 = IPMConfig(**BLOCK_CELLS[cell]["config"])
+    arrays = draw_block(cell)
+    digests = input_digests(arrays)
+    spec, theta, ccdata, x0 = block_problem(cell, arrays, device)
     walls, res = {}, {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
         th = {k: v.to(dev) for k, v in theta.items()}
@@ -2268,7 +2512,8 @@ def lbfgs_block_phase(S, counters, sl, ll, _sync, device):
     cross = {w: dict(signal=int(r.signal), iters=int(r.iter_count),
                      wall_s=walls[w]) for w, r in res.items()}
     cross["max_dx"] = dx
-    print(f"  K={K} d={LBFGS_CROSS_D} float64: card signal "
+    print(f"  K={K} d={BLOCK_CELLS[cell]['instance']['d']} float64: card "
+          f"signal "
           f"{cross['card']['signal']} iterations {cross['card']['iters']} "
           f"wall {walls['card']:.3f} s; CPU signal {cross['cpu']['signal']}"
           f" iterations {cross['cpu']['iters']} wall {walls['cpu']:.3f} s; "
@@ -2277,6 +2522,8 @@ def lbfgs_block_phase(S, counters, sl, ll, _sync, device):
             cross["cpu"]["signal"], cross["cpu"]["iters"]) or \
             cross["card"]["signal"] not in (1, 2) or not dx <= 1e-8:
         raise AssertionError(f"L-BFGS card against CPU: {cross}")
+    cross["jax_card"] = hold_block_to_jax(cell, digests, res["card"])
+    cross["jax_cpu"] = hold_block_to_jax(cell, digests, res["cpu"], "the CPU")
     out["cross_f64"] = cross
 
     t0 = time.perf_counter()
@@ -2742,7 +2989,6 @@ def main() -> int:
 
     counters = (sl.LAUNCHES, sl.LAUNCHES_BY_N, ll.LAUNCHES,
                 ll.LAUNCHES_BY_B, _sync.COUNTS)
-    from pyipm_tpu_torch.models import applications as apps
     from pyipm_tpu_torch.parallel import schur as S
     with matmul_precision(cfg.matmul_precision):
         phase("19 batched_reg_factor at the Schur shapes, kernels 1 and 3 "
@@ -2751,23 +2997,21 @@ def main() -> int:
                                                          device)
     phase(f"21 a million variables as K={WEAK['K']} blocks of "
           f"d={WEAK['d']}, mc={WEAK['mc']}, no refinement, float32")
-    schur = {"weak": separable_phase(
-        S, cfg.replace(schur_refine_steps=0, schur_refine_guard=False),
-        WEAK, counters, sl, ll, _sync, device, need_k1=True)}
+    schur = {"weak": separable_phase(S, "schur_weak", counters, sl, ll,
+                                     _sync, device, need_k1=True)}
     phase(f"22 large blocks (K={LARGE['K']}, d={LARGE['d']}, "
           f"mc={LARGE['mc']}), float32: the batched kernel 3")
-    schur["large"] = separable_phase(S, cfg, LARGE, counters, sl, ll, _sync,
-                                     device, need_k3=True)
+    schur["large"] = separable_phase(S, "schur_large", counters, sl, ll,
+                                     _sync, device, need_k3=True)
     phase("23 general block NLPs: resource allocation, nonlinear and "
           "linear coupling, ragged, pause and resume")
-    schur["general"] = general_phase(S, apps, cfg, counters, sl, ll, _sync,
-                                     device)
+    schur["general"] = general_phase(S, counters, sl, ll, _sync, device)
     reset(sl.LAUNCHES_BY_N)
     held_schur = hold_seen_sizes(sl, device)
     print(f"  kernel 1 held to its plain version at the new sizes n = "
           f"{held_schur} (B = {PATH_B})", flush=True)
     phase("24 two ranks on the card (launch --spawn 2, gloo)")
-    schur["ranks"] = ranks_phase(S, cfg, device)
+    schur["ranks"] = ranks_phase(S, device)
     phase(f"25 the per-block L-BFGS mode: {LBFGS_BLOCK['K']} blocks of "
           f"d={LBFGS_BLOCK['d']}, mc={LBFGS_BLOCK['p']}, float32")
     schur["lbfgs_block"] = lbfgs_block_phase(S, counters, sl, ll, _sync,
@@ -2845,8 +3089,8 @@ def main() -> int:
             small, schur["weak"]["launches"]["factor"],
             schur_kernels["ldlt_factor_small_65536x16"], [65_536, 16]),
         row("ldlt_factor_small_n17", "pyipm_tpu/ops/pallas_ldlt.py:49",
-            small, schur["general"]["resource_ineq_adaptive_float32"][
-                "launches"]["factor"],
+            small, schur["general"]["resource_ineq_adaptive"]["launches"][
+                "factor"],
             schur_kernels["ldlt_factor_small_16384x17"], [16_384, 17]),
         row("bwd_sweep_panels", "pyipm_tpu/ops/pallas_ldlt.py:523",
             "pyipm_tpu_torch/csrc/bwd_sweep_panels.cu",

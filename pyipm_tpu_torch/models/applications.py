@@ -22,8 +22,10 @@ Families:
 
   - **Resource allocation**: K agents with local costs and constraints
     sharing resource budgets, one ``BlockNLP`` of the block-separable
-    Schur solver (``parallel/schur.py``); its sampler draws from a
-    ``torch.Generator`` as the Schur samplers do.
+    Schur solver (``parallel/schur.py``); ``sample_resource_alloc`` draws
+    from a ``torch.Generator`` as the Schur samplers do, and
+    ``sample_resource_alloc_arrays`` from a numpy seed as their numpy
+    forms do.
 """
 
 from __future__ import annotations
@@ -312,6 +314,32 @@ def sample_resource_alloc(gen: torch.Generator, nagents: int, nvar: int,
              "lb": torch.zeros((K, d), dtype=dtype, device=dev)}
     return ResourceAllocData(
         theta, {"budget": torch.einsum("krd,kd->r", R, xfeas)})
+
+
+def sample_resource_alloc_arrays(seed: int, nagents: int, nvar: int,
+                                 nres: int = 4, neq: int = 1,
+                                 dtype=np.float32) -> tuple:
+    """:func:`sample_resource_alloc`'s instance from a numpy seed, drawn
+    as the numpy Schur samplers draw (``parallel/schur.py``: normals on a
+    grid, products exact): (theta, ccdata) for
+    ``resource_alloc_data``."""
+    from pyipm_tpu_torch.parallel.schur import (
+        _GRID, _block_dot, _fsum_blocks, _grid_normal, _spd_arrays,
+    )
+    rng = np.random.default_rng(seed)
+    K, d = nagents, nvar
+    Q = _spd_arrays(rng, K, d, dtype)
+    c = _grid_normal(rng, (K, d))
+    Ce = _grid_normal(rng, (K, neq, d))
+    R = np.abs(_grid_normal(rng, (K, nres, d)))
+    xf = np.abs(_grid_normal(rng, (K, d))) + int(_GRID) // 2  # |N| + 0.5
+    sd = _GRID * np.sqrt(d)
+    theta = dict(Q=Q, c=c / _GRID, Ce=Ce / sd,
+                 e=_block_dot("kmd,kd->km", Ce, xf) / (_GRID * sd),
+                 R=R / (_GRID * K * d), lb=np.zeros((K, d)))
+    budget = _fsum_blocks(_block_dot("krd,kd->kr", R, xf)
+                          / (_GRID ** 2 * K * d))
+    return _cast(theta, dtype), _cast(dict(budget=budget), dtype)
 
 
 def make_resource_alloc_spec(nvar: int, nres: int = 4, neq: int = 1,

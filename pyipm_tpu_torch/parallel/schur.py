@@ -34,6 +34,7 @@ diagonal base, O(d (2m + ni)) a block: no (d, d) matrix is ever formed
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -50,6 +51,7 @@ from pyipm_tpu_torch.core.solver import (
     LoopEngine, MetricsHistory, SolverState, _phase,
 )
 from pyipm_tpu_torch.core.updates import nu_threshold
+from pyipm_tpu_torch.models.applications import _cast
 from pyipm_tpu_torch.models.random_nlp import resolve_device
 from pyipm_tpu_torch.ops.linalg import _eq_reg_term, batched_reg_factor
 from pyipm_tpu_torch.parallel.reduce import Reducer
@@ -1884,3 +1886,145 @@ def sample_block_box_quadratic(gen: torch.Generator, K: int, d: int,
     ccdata = {"b": torch.einsum("kpd,kd->p", A, xfeas)}
     return (block_box_quadratic_spec(d, p), theta, ccdata,
             torch.zeros((K, d), dtype=dtype, device=dev))
+
+
+# ----------------------------------------------------------------------
+# numpy-seeded samplers: the families above drawn from
+# ``np.random.default_rng(seed)``, numpy arrays out (the CPU cannot replay
+# a CUDA generator's stream, so a reference computed off the card needs
+# these).  Normals lie on a grid of 2^-16 and are kept as int64 multiples
+# of it (|n| < 2^21) until every product is formed: a per-block dot of d
+# < 2^21 terms is exact in int64, a (d, d) Gram block of d <= 2048 is
+# exact in float64 whatever order the BLAS sums in (torch's CPU product,
+# the faster one), and a sum over blocks is ``math.fsum``'s correctly
+# rounded one, so every machine draws the same bits.  Each array is
+# rounded once to ``dtype``.
+_GRID = 2.0 ** 16
+_NMAX = 2 ** 21 - 1
+_GRAM_CHUNK = 2048               # d * 2^42 < 2^53: exact in float64
+
+
+def _grid_normal(rng, shape):
+    """N(0, 1) draws as int64 multiples of 2^-16."""
+    return np.clip(np.rint(rng.standard_normal(shape) * _GRID), -_NMAX,
+                   _NMAX).astype(np.int64)
+
+
+def _spd_arrays(rng, K, d, dtype):
+    """Q = G G^T / d + I with G ~ N(0, 1) (the torch samplers' G / sqrt(d)
+    squared), formed exactly and rounded once to ``dtype``; drawn in
+    chunks of blocks (the same stream as one draw)."""
+    Q = np.empty((K, d, d), dtype)
+    kc = max(1, 2 ** 22 // (d * d))
+    for k0 in range(0, K, kc):
+        G = _grid_normal(rng, (min(kc, K - k0), d, d)).astype(np.float64)
+        P = np.zeros(G.shape, np.int64)
+        for j0 in range(0, d, _GRAM_CHUNK):
+            g = torch.from_numpy(G[..., j0:j0 + _GRAM_CHUNK])
+            P += (g @ g.mT).numpy().astype(np.int64)
+        Q[k0:k0 + len(G)] = P / (_GRID ** 2 * d) + np.eye(d)
+    return Q
+
+
+def _block_dot(subscripts, a, b):
+    """A per-block ``einsum`` of two int64 grid arrays, exact, as float64
+    (one rounding where the sum passes 2^53)."""
+    return np.einsum(subscripts, a, b).astype(np.float64)
+
+
+def _fsum_blocks(v):
+    """The sum over the leading (block) axis, correctly rounded."""
+    flat = v.reshape(v.shape[0], -1)
+    return np.array([math.fsum(col) for col in flat.T.tolist()]).reshape(
+        v.shape[1:])
+
+
+def sample_separable_arrays(seed: int, K: int, d: int, mc: int,
+                            dtype=np.float32) -> dict:
+    """:func:`sample_separable`'s family from a numpy seed: {"theta":
+    {"Q", "c"}, "A", "b", "lb"}, the fields of :class:`SeparableData`
+    (``interop.separable_data_from_numpy``); x0 is zeros."""
+    rng = np.random.default_rng(seed)
+    Q = _spd_arrays(rng, K, d, dtype)
+    c = _grid_normal(rng, (K, d))
+    A = _grid_normal(rng, (K, mc, d))
+    xf = _grid_normal(rng, (K, d))
+    scale = _GRID * np.sqrt(K * d)
+    b = _fsum_blocks(_block_dot("kcd,kd->kc", A, xf) * (0.1 / (_GRID
+                                                               * scale)))
+    return dict(theta=dict(Q=Q, c=(c / _GRID).astype(dtype)),
+                **_cast(dict(A=A / scale, b=b, lb=np.full((K, d), -2.0)),
+                        dtype))
+
+
+def _block_arrays(rng, K, d, me, ni, p, dtype):
+    """``_block_data`` from a numpy generator: (theta, Q in ``dtype`` and
+    the rest in float64; G and xfeas as grid integers)."""
+    Q = _spd_arrays(rng, K, d, dtype)
+    c = _grid_normal(rng, (K, d))
+    Ce = _grid_normal(rng, (K, me, d))
+    Ci = _grid_normal(rng, (K, ni, d))
+    G = _grid_normal(rng, (K, p, d))
+    xf = _grid_normal(rng, (K, d))
+    sd = _GRID * np.sqrt(d)
+    theta = dict(Q=Q, c=c / _GRID, Ce=Ce / sd,
+                 e=_block_dot("kmd,kd->km", Ce, xf) * (0.1 / (_GRID * sd)),
+                 Ci=Ci / sd,
+                 di=1.0 - _block_dot("knd,kd->kn", Ci, xf) * (
+                     0.1 / (_GRID * sd)),
+                 G=G / (_GRID * np.sqrt(K * d)))
+    return theta, G, xf
+
+
+def sample_block_general_arrays(seed: int, K: int, d: int, me: int = 1,
+                                ni: int = 2, p: int = 2,
+                                dtype=np.float64) -> tuple:
+    """:func:`sample_block_general`'s family from a numpy seed (the spec:
+    :func:`block_general_spec`, whose coupling counts and form do not
+    change the data): (theta, ccdata); x0 is zeros."""
+    rng = np.random.default_rng(seed)
+    theta, G, xf = _block_arrays(rng, K, d, me, ni, p, dtype)
+    base = _block_dot("kpd,kd->kp", G, xf) * (
+        0.1 / (_GRID ** 2 * np.sqrt(K * d)))
+    u0 = _fsum_blocks(base + 0.05 * base ** 2)
+    return _cast(theta, dtype), _cast(dict(u0=u0), dtype)
+
+
+def sample_block_ragged_arrays(seed: int, K: int, d: int = 4, me: int = 2,
+                               ni: int = 3, p: int = 2,
+                               dtype=np.float64) -> tuple:
+    """:func:`sample_block_ragged`'s family from a numpy seed (the spec:
+    :func:`block_ragged_spec`): (theta, ccdata, me_counts, ni_counts),
+    junk in the rows outside the masks; x0 is zeros."""
+    rng = np.random.default_rng(seed)
+    me_counts = rng.integers(1, me + 1, size=K)
+    ni_counts = rng.integers(max(ni - 1, 1), ni + 1, size=K)
+    ce_mask = np.arange(me)[None] < me_counts[:, None]
+    ci_mask = np.arange(ni)[None] < ni_counts[:, None]
+    theta, G, xf = _block_arrays(rng, K, d, me, ni, p, dtype)
+    junk = 37.0
+    theta["e"] = np.where(ce_mask, theta["e"], junk)
+    theta["di"] = np.where(ci_mask, theta["di"], -junk)
+    theta.update(ce_mask=ce_mask, ci_mask=ci_mask)
+    u0 = _fsum_blocks(_block_dot("kpd,kd->kp", G, xf) * (
+        0.1 / (_GRID ** 2 * np.sqrt(K * d))))
+    return (_cast(theta, dtype), _cast(dict(u0=u0), dtype), me_counts,
+            ni_counts)
+
+
+def sample_block_box_quadratic_arrays(seed: int, K: int, d: int,
+                                      p: int = 4,
+                                      dtype=np.float32) -> tuple:
+    """:func:`sample_block_box_quadratic`'s family from a numpy seed (the
+    spec: :func:`block_box_quadratic_spec`): (theta, ccdata); x0 is
+    zeros."""
+    rng = np.random.default_rng(seed)
+    q = 0.5 + rng.random((K, d))
+    c = _grid_normal(rng, (K, d))
+    A = _grid_normal(rng, (K, p, d))
+    xf = _grid_normal(rng, (K, d))
+    scale = _GRID * np.sqrt(K * d)
+    b = _fsum_blocks(_block_dot("kpd,kd->kp", A, xf) * (0.1 / (_GRID
+                                                               * scale)))
+    theta = dict(q=q, c=c / _GRID, A=A / scale, lb=np.full((K, d), -3.0))
+    return _cast(theta, dtype), _cast(dict(b=b), dtype)

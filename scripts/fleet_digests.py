@@ -8,8 +8,9 @@ runs, with this checkout's ``chip_smoke`` code, phase 4's 10,000-QP fleet
 (``solve_batch``, float32, x0 from numpy seed 7 after a warm-up) and phase
 16 (``mixed_fleet_phase``: each bucket alone through ``solve_fleet``, then
 every bucket and problem 5 in one call, with its checks), then phase 22
-(``separable_phase`` at ``LARGE``: the Schur solver's 256 blocks of d =
-1024 in float32, the batched kernel 3's path).  Prints the first 16 hex
+(``separable_phase`` of the ``schur_large`` cell: the Schur solver's 256
+blocks of d = 1024 in float32, the batched kernel 3's path, held to the
+JAX package's answer).  Prints the first 16 hex
 digits of the sha256 of each run's signals, iteration counts and x, and
 the kernels' launches by n (by B for kernel 3); run it on a parent unpacked
 with ``git archive`` and on this tree in one call.  Needs one CUDA card.
@@ -61,8 +62,9 @@ def main():
     from pyipm_tpu_torch.parallel import schur as S
     with matmul_precision(cfg.matmul_precision):
         large = cs.separable_phase(
-            S, cfg, cs.LARGE, counters[:3] + (ll.LAUNCHES_BY_B, _sync.COUNTS),
-            sl, ll, _sync, device, need_k3=True)
+            S, "schur_large",
+            counters[:3] + (ll.LAUNCHES_BY_B, _sync.COUNTS), sl, ll, _sync,
+            device, need_k3=True)
     print(f"Schur K={cs.LARGE['K']} d={cs.LARGE['d']}: digests "
           f"{large['digests']}, kernel 3 launches by B "
           f"{large['kernel3_by_b']}", flush=True)

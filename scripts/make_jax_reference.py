@@ -14,18 +14,29 @@ kernels for float32 systems of n <= 64, run in interpret mode
 path's, and the manifest's ``pallas_interpret_reached`` says whether a
 kernel was reached).  The wide portfolios and the dense NLPs, whose TPU
 dispatch would reach Pallas kernels that no switch here turns on, take the
-JAX CPU path, and the manifest says so.
+JAX CPU path, and the manifest says so.  The Schur solves of phases 21-25
+(``chip_smoke.BLOCK_CELLS``) are drawn by ``chip_smoke.draw_block`` (the
+port's numpy samplers, exact on any machine) and solved by the JAX
+package's ``make_separable_solver`` or ``make_block_solver`` on a
+one-device mesh: the TPU dispatch where their float32 condensed blocks
+reach the Pallas factor (n <= 64), the CPU path otherwise (float64, d =
+1024, the L-BFGS mode).
 
 Each cell runs in its own process (x64 mode is process-wide and the
 float64 cell turns it on) and writes ``jax_reference/<cell>.npz``:
 ``signal`` (int8), ``iter_count`` (int16) and ``f`` (float64) of every
 instance, ``x`` (the cell's dtype) of the rows in ``x_rows`` (rows 0-511
 and the instances ``chip_smoke.py`` or the parity tests name), ``kkt``
-(float64) where the cell is one solve; and its entry in
-``jax_reference/MANIFEST.json``: sampler, seed, sizes, dtype,
-configuration, the JAX path, the rows of x, the JAX version, the wall and
-the file's sha256.  ``chip_smoke.hold_to_jax`` holds the card to these
-files.  ``--cell`` regenerates one cell (cells run one after another: each
+(float64) where the cell is one solve; a Schur cell keeps its one
+solve's ``signal``, ``iter_count``, ``f``, ``kkt``, the coupling
+multipliers ``lc`` and ``lci`` and the x of ``chip_smoke.block_x_layout``
+(whole blocks up to 16,384 values, or the first 16,384 / K entries of
+every block); and its entry in ``jax_reference/MANIFEST.json``: sampler,
+seed, sizes, dtype, configuration, the JAX path, the rows of x (a Schur
+cell: its x layout and the sha256 of every input array), the JAX
+version, the wall and the file's sha256.  ``chip_smoke.hold_to_jax`` and
+``chip_smoke.hold_block_to_jax`` hold the card to these files.
+``--cell`` regenerates one cell (cells run one after another: each
 rewrites the manifest).
 """
 
@@ -59,15 +70,59 @@ NAMED_ROWS = dict(mixed_maxent=fp.MAXENT_CARD_SPLIT, mixed_svm=(524,),
                   mixed_mpc=fp.MPC_JAX_CPU_FAILS + fp.MPC_SLOW)
 KERNEL, CPU = "tpu_dispatch_interpret", "cpu"
 FAMILIES = ("portfolio", "svm", "maxent", "mpc")
-CELLS = ("qp_adaptive", "qp_mehrotra",
-         *(f"mixed_{b}" for b in FAMILIES), "mixed_box_qp",
-         "wide_portfolio", "dense_condensed", "dense_ldlt", "dense_lbfgs")
+FLEET_CELLS = ("qp_adaptive", "qp_mehrotra",
+               *(f"mixed_{b}" for b in FAMILIES), "mixed_box_qp",
+               "wide_portfolio", "dense_condensed", "dense_ldlt",
+               "dense_lbfgs")
+# the Schur solves of phases 21-25, one a cell (chip_smoke.BLOCK_CELLS)
+BLOCK_CELLS = tuple(cs.BLOCK_CELLS)
+CELLS = FLEET_CELLS + BLOCK_CELLS
+# the numpy sampler and the JAX solver of each Schur family
+BLOCK_SAMPLERS = dict(
+    separable="pyipm_tpu_torch.parallel.schur.sample_separable_arrays",
+    resource="pyipm_tpu_torch.models.applications."
+    "sample_resource_alloc_arrays",
+    general="pyipm_tpu_torch.parallel.schur.sample_block_general_arrays",
+    ragged="pyipm_tpu_torch.parallel.schur.sample_block_ragged_arrays",
+    box_quadratic="pyipm_tpu_torch.parallel.schur."
+    "sample_block_box_quadratic_arrays")
+BLOCK_SOLVERS = dict(
+    separable="pyipm_tpu.parallel.schur.make_separable_solver (the spec "
+    "of pyipm_tpu.parallel.schur.sample_separable)",
+    resource="pyipm_tpu.parallel.schur.make_block_solver(pyipm_tpu.models."
+    "applications.make_resource_alloc_spec)",
+    general="pyipm_tpu.parallel.schur.make_block_solver (the spec of "
+    "pyipm_tpu.parallel.schur.sample_block_general)",
+    ragged="pyipm_tpu.parallel.schur.make_block_solver (the spec of "
+    "pyipm_tpu.parallel.schur.sample_block_ragged)",
+    box_quadratic="pyipm_tpu.parallel.schur.make_block_solver (the spec "
+    "of benchmarks/bench_lbfgs_block.py:48-70)")
+
+
+def block_kernel_path(cell):
+    """Whether a Schur cell's JAX solve takes the TPU dispatch: a float32
+    exact-Hessian solve whose condensed blocks (n = d + me) the Pallas
+    factor takes (n <= 64)."""
+    c = cs.BLOCK_CELLS[cell]
+    n = c["instance"]["d"] + c["instance"].get("me", c["instance"].get(
+        "neq", 0))
+    return (c["config"]["float_dtype"] == "float32"
+            and not c["config"].get("lbfgs") and n <= 64)
 
 
 def spec(cell):
     """What ``cell`` is, from chip_smoke's constants: the manifest keys that
     tests/test_torch_jax_reference.py holds to the constants."""
     f32 = dict(float_dtype="float32", verbosity=0, Ktol=KTOL)
+    if cell in cs.BLOCK_CELLS:
+        c = cs.BLOCK_CELLS[cell]
+        return dict(phase=c["phase"], instances=1,
+                    sampler=BLOCK_SAMPLERS[c["family"]], seed=c["seed"],
+                    sizes=c["instance"],
+                    x0="ones" if c["family"] == "resource" else "zeros",
+                    config=c["config"],
+                    jax_path=KERNEL if block_kernel_path(cell) else CPU,
+                    jax_solver=BLOCK_SOLVERS[c["family"]])
     if cell.startswith("qp_"):
         mu = cell.removeprefix("qp_")
         return dict(phase=4 if mu == "adaptive" else 10, instances=cs.B,
@@ -186,6 +241,75 @@ def _solver(cell):
             *(jnp.asarray(arr[k]) for k in DenseNLPData._fields))))
 
 
+def _block_solver(cell):
+    """``solve()``: the JAX package's result of the Schur cell ``cell``
+    (its ``draw_block`` arrays, one device), and the arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    from pyipm_tpu import IPMConfig as JCfg
+    from pyipm_tpu.models import applications as JA
+    from pyipm_tpu.parallel import schur as JS
+
+    c = cs.BLOCK_CELLS[cell]
+    z = c["instance"]
+    if c["config"]["float_dtype"] == "float64":
+        jax.config.update("jax_enable_x64", True)
+    cfg = JCfg(**c["config"])
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("model",),
+                             axis_types=(jax.sharding.AxisType.Auto,))
+    arrays = cs.draw_block(cell)
+    tree = jax.tree.map(jnp.asarray, arrays)
+    dt = jnp.dtype(c["config"]["float_dtype"])
+    x0 = jnp.zeros((z["K"], z["d"]), dt)
+    key = jax.random.key(0)
+    # the JAX samplers' own specs: their closures depend on the sizes only
+    if c["family"] == "separable":
+        fn = JS.make_separable_solver(JS.sample_separable(
+            key, 1, z["d"], z["mc"], jnp.float32)[0], mesh, cfg)
+        return (lambda: fn(x0, JS.SeparableData(**tree))), arrays
+    if c["family"] == "resource":
+        spec = JA.make_resource_alloc_spec(z["d"], z["nres"], z["neq"],
+                                           cap=z["cap"])
+        x0 = x0 + 1
+    elif c["family"] == "general":
+        spec = JS.sample_block_general(
+            key, 1, z["d"], z["me"], z["ni"], z["p"], z["mc"],
+            dtype=jnp.float32, nonlinear_cc=z["nonlinear_cc"])[0]
+    elif c["family"] == "ragged":
+        spec = JS.sample_block_ragged(key, 1, z["d"], z["me"], z["ni"],
+                                      z["p"], z["mc"], dtype=jnp.float32)[0]
+    else:
+        spec = JS.BlockNLP(
+            f_blk=lambda xk, th: 0.5 * xk @ (th["q"] * xk) + th["c"] @ xk,
+            d=z["d"], ci_blk=JS.box_ci("lb"), ni=z["d"], ci_identity=True,
+            g_blk=lambda xk, th: th["A"] @ xk,
+            cc=lambda u, ccd: u - ccd["b"], p=z["p"], mc=z["p"])
+    fn = JS.make_block_solver(spec, mesh, cfg)
+    return (lambda: fn(x0, tree["theta"], ccdata=tree["ccdata"])), arrays
+
+
+def solve_block(cell):
+    """The JAX package's answer to the Schur cell ``cell``: (dict of numpy
+    fields, whether a Pallas kernel was reached in interpret mode, the
+    input arrays' digests)."""
+    import jax
+
+    solve, arrays = _block_solver(cell)
+    digests = cs.input_digests(arrays)
+    del arrays
+    seen = []
+    if spec(cell)["jax_path"] == KERNEL:
+        with fp.kernel_path() as seen:
+            res = jax.block_until_ready(solve())
+    else:
+        res = jax.block_until_ready(solve())
+    out = {k: np.asarray(getattr(res, k)) for k in (
+        "signal", "iter_count", "fval", "x", "kkt", "lc")}
+    out["lci"] = np.asarray(getattr(res, "lci", np.zeros(0, out["lc"].dtype)))
+    return out, bool(seen), digests
+
+
 def solve_rows(cell, rows=None):
     """The JAX package's result of ``rows`` of ``cell`` (all by default)
     along the cell's path: (dict of numpy fields, whether a Pallas kernel
@@ -218,26 +342,41 @@ def run_cell(cell):
     import jax
     import jaxlib
 
-    t0 = time.perf_counter()
-    out, pallas = solve_rows(cell)
-    wall = time.perf_counter() - t0
     sp = spec(cell)
-    xr = x_rows(cell)
-    arrays = dict(signal=out["signal"].astype(np.int8),
-                  iter_count=out["iter_count"].astype(np.int16),
-                  f=out["fval"].astype(np.float64), x_rows=xr,
-                  x=out["x"][xr].astype(sp["config"]["float_dtype"]))
-    if sp["instances"] == 1:
-        arrays["kkt"] = out["kkt"].astype(np.float64)
+    dt = sp["config"]["float_dtype"]
+    t0 = time.perf_counter()
+    extra = {}
+    if cell in cs.BLOCK_CELLS:
+        out, pallas, digests = solve_block(cell)
+        wall = time.perf_counter() - t0
+        nb, nc = cs.block_x_layout(*out["x"].shape)
+        arrays = dict(signal=out["signal"].astype(np.int8),
+                      iter_count=out["iter_count"].astype(np.int16),
+                      f=out["fval"].astype(np.float64),
+                      kkt=out["kkt"].astype(np.float64),
+                      lc=out["lc"].astype(dt), lci=out["lci"].astype(dt),
+                      x=out["x"][:nb, :nc].astype(dt))
+        extra = dict(inputs=digests, x_blocks=nb, x_entries=nc)
+    else:
+        out, pallas = solve_rows(cell)
+        wall = time.perf_counter() - t0
+        xr = x_rows(cell)
+        arrays = dict(signal=out["signal"].astype(np.int8),
+                      iter_count=out["iter_count"].astype(np.int16),
+                      f=out["fval"].astype(np.float64), x_rows=xr,
+                      x=out["x"][xr].astype(dt))
+        if sp["instances"] == 1:
+            arrays["kkt"] = out["kkt"].astype(np.float64)
+        extra = dict(x_rows=_runs(xr))
     blob = npz_bytes(arrays)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, f"{cell}.npz"), "wb") as fh:
         fh.write(blob)
     sig, cnt = np.unique(arrays["signal"], return_counts=True)
     entry = dict(
-        sp, file=f"{cell}.npz", dtype=sp["config"]["float_dtype"],
-        pallas_interpret_reached=pallas, x_rows=_runs(xr),
-        jax_version=jax.__version__, jaxlib_version=jaxlib.__version__,
+        sp, file=f"{cell}.npz", dtype=dt, pallas_interpret_reached=pallas,
+        **extra, jax_version=jax.__version__,
+        jaxlib_version=jaxlib.__version__,
         numpy_version=np.__version__, wall_s=round(wall, 1),
         signals={str(int(k)): int(v) for k, v in zip(sig, cnt)},
         mean_iters=float(arrays["iter_count"].mean()),

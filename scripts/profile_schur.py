@@ -4,8 +4,9 @@ instance, then whole solves, on the card (or the CPU).
     python scripts/profile_schur.py [--K 4096] [--d 256] [--mc 8]
         [--dtype float32] [--device cuda] [--trace-iters 3]
 
-The instance is ``chip_smoke.py``'s (``sample_separable`` from a
-generator seeded with its ``SEED``).  Prints the wall of each piece of
+The instance is ``sample_separable``'s from a generator seeded with
+``chip_smoke.SEED`` (phases 21-22 of ``chip_smoke.py`` draw theirs with
+``sample_separable_arrays`` instead).  Prints the wall of each piece of
 one iteration (the per-block gradient, Jacobian and Hessian, the
 least-squares multipliers, ``batched_reg_factor`` and a solve), of three
 inner iterations one by one, of one whole solve with its signal,

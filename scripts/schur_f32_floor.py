@@ -5,11 +5,14 @@ and the data cast up), and print both with the norm of the difference of
 the two gradients of the Lagrangian (the float32 evaluation's own error).
 
     python scripts/schur_f32_floor.py [--K 4096] [--d 256] [--mc 8]
-        [--device cuda] [--package port|both] [--seed 7]
+        [--device cuda] [--package port|both] [--seed 7] [--cell NAME]
 
-``--package port`` draws ``chip_smoke.py``'s instance (``sample_separable``
-from a generator seeded with its ``SEED`` on the device) and solves it
-with the port.  ``--package both`` (CPU only, needs JAX) draws the
+``--package port`` draws ``sample_separable``'s instance from a generator
+seeded with ``chip_smoke.SEED`` on the device and solves it with the
+port; with ``--cell`` (``schur_weak``, ``schur_large`` or ``schur_ranks``)
+it solves that cell of ``chip_smoke.BLOCK_CELLS`` instead, drawn by
+``sample_separable_arrays`` in the cell's configuration.  ``--package
+both`` (CPU only, needs JAX) draws the
 instance with the JAX package's sampler (``jax.random.key(seed)``, as
 ``benchmarks/bench_schur_scaling.py --mode million`` does), solves it in
 float32 with both packages, and evaluates both final iterates, and the
@@ -27,6 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import chip_smoke as cs  # noqa: E402
 from chip_smoke import SEED  # noqa: E402
 from pyipm_tpu_torch import IPMConfig  # noqa: E402
 from pyipm_tpu_torch.parallel import schur as S  # noqa: E402
@@ -83,16 +87,30 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--package", default="port", choices=("port", "both"))
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--cell", choices=[c for c, v in cs.BLOCK_CELLS.items()
+                                       if v["family"] == "separable"])
     a = ap.parse_args()
+    if a.cell and a.package == "both":
+        ap.error("--cell draws the port's numpy cell: --package port only")
     dev = torch.device(a.device)
     cfg = IPMConfig(float_dtype="float32", verbosity=0)
+    if a.cell:
+        cfg = IPMConfig(**cs.BLOCK_CELLS[a.cell]["config"])
+        a.K, a.d, a.mc = (cs.BLOCK_CELLS[a.cell]["instance"][k]
+                          for k in ("K", "d", "mc"))
     print(f"K={a.K} d={a.d} mc={a.mc} ({a.K * a.d} variables), float32, "
           f"Ktol {cfg.Ktol}, {dev}", flush=True)
     if a.package == "port":
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        spec, data, x0 = S.sample_separable(gen, a.K, a.d, a.mc, device=dev)
-        theta = {"user": data.theta, "A": data.A, "lb": data.lb}
-        cc = {"b": data.b}
+        if a.cell:
+            spec = S.separable_spec(a.d, a.mc)
+            _, theta, cc, x0 = cs.block_problem(a.cell,
+                                                cs.draw_block(a.cell), dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            spec, data, x0 = S.sample_separable(gen, a.K, a.d, a.mc,
+                                                device=dev)
+            theta = {"user": data.theta, "A": data.A, "lb": data.lb}
+            cc = {"b": data.b}
         fn, fn64, res, sig, its, wall = port_solve(spec, theta, cc, x0, cfg,
                                                    dev)
         report("port", sig, its, wall, *evaluate(fn, fn64, theta, cc, res),

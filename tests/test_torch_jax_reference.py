@@ -12,7 +12,12 @@
 (c) the port's CPU path on rows 0-7 of every fleet cell passes
     ``chip_smoke.hold_to_jax``, the function the card's run calls;
 (d) that hold raises on a stale or missing file and on each kind of miss
-    (a signal, x, f, the mean iteration count)."""
+    (a signal, x, f, the mean iteration count);
+(e) each Schur cell of phases 21-25 (``make_jax_reference.BLOCK_CELLS``;
+    their holds in tests/test_torch_schur_reference.py) has the layout
+    ``chip_smoke.hold_block_to_jax`` reads: one solve's signal, iteration
+    count, f, KKT norms and coupling multipliers, the x of
+    ``chip_smoke.block_x_layout`` and a sha256 of every input array."""
 
 import json
 import os
@@ -32,7 +37,7 @@ import make_jax_reference as mjr  # noqa: E402
 ROWS = np.arange(8)
 # the port's CPU path on eight portfolios of 500 assets takes ~1 min
 FLEETS = [pytest.param(c, marks=pytest.mark.slow) if c == "wide_portfolio"
-          else c for c in mjr.CELLS if not c.startswith("dense_")]
+          else c for c in mjr.FLEET_CELLS if not c.startswith("dense_")]
 
 
 def _manifest():
@@ -50,7 +55,7 @@ def test_manifest_names_every_cell_within_3_mb():
     assert total <= 3 * 2 ** 20, total
 
 
-@pytest.mark.parametrize("cell", mjr.CELLS)
+@pytest.mark.parametrize("cell", mjr.FLEET_CELLS)
 def test_reference_matches_manifest_and_constants(cell):
     entry, ref = cs.jax_reference(cell)            # raises on a stale sha256
     # JSON keeps lists where the spec has tuples
@@ -65,6 +70,41 @@ def test_reference_matches_manifest_and_constants(cell):
     assert ref["x"].shape[0] == ref["x_rows"].size
     assert ref["x"].dtype == np.dtype(entry["dtype"])
     assert np.all(np.isfinite(ref["x"]))
+
+
+@pytest.mark.parametrize("cell", mjr.BLOCK_CELLS)
+def test_block_reference_matches_manifest_and_constants(cell):
+    entry, ref = cs.jax_reference(cell)            # raises on a stale sha256
+    assert {k: entry[k] for k in mjr.spec(cell)} == json.loads(
+        json.dumps(mjr.spec(cell)))
+    z = cs.BLOCK_CELLS[cell]["instance"]
+    dt = np.dtype(entry["dtype"])
+    assert entry["instances"] == 1
+    assert entry["jax_path"] == (mjr.KERNEL if mjr.block_kernel_path(cell)
+                                 else mjr.CPU)
+    assert entry["pallas_interpret_reached"] == (entry["jax_path"]
+                                                 == mjr.KERNEL)
+    assert sorted(ref) == ["f", "iter_count", "kkt", "lc", "lci", "signal",
+                           "x"]
+    assert ref["signal"].shape == () and ref["signal"].dtype == np.int8
+    assert ref["iter_count"].shape == () and ref["iter_count"].dtype == \
+        np.int16
+    assert ref["f"].dtype == ref["kkt"].dtype == np.float64
+    assert ref["kkt"].shape == (4,)
+    nb, nc = cs.block_x_layout(z["K"], z["d"])
+    assert ref["x"].shape == (nb, nc) == (entry["x_blocks"],
+                                          entry["x_entries"])
+    assert nb * nc <= cs.BLOCK_X_VALUES
+    assert ref["x"].dtype == ref["lc"].dtype == ref["lci"].dtype == dt
+    mc = z.get("mc", z.get("p", z.get("nres")))
+    assert ref["lc"].size + ref["lci"].size == mc
+    assert all(np.all(np.isfinite(ref[k])) for k in ("x", "lc", "lci"))
+    keys = sorted(entry["inputs"])
+    if cs.BLOCK_CELLS[cell]["family"] == "separable":
+        assert keys == ["A", "b", "lb", "theta/Q", "theta/c"]
+    else:
+        assert {k.split("/")[0] for k in keys} == {"theta", "ccdata"}
+    assert all(len(v) == 64 for v in entry["inputs"].values())
 
 
 @pytest.mark.parametrize("cell", ["qp_adaptive", "mixed_maxent"])
