@@ -120,7 +120,20 @@ Phases, each raising on failure:
      0-15 solved one at a time at B = 1 on the card and as one batch on
      the CPU, each held as phase 16 holds a bucket (signals equal, x
      within CARD_CPU_XTOL['portfolio'], or STOP_APART_XTOL where the two
-     stop at other iteration counts).
+     stop at other iteration counts);
+ 27. the package's default float64 at full size, phase 26's tensors freed
+     first: phase 4's and phase 10's fleets (``solve_batch``), phase 8's
+     dense NLP with 'condensed' and 'ldlt' (``solve``), phase 16's
+     buckets (``solve_fleet``) and phase 26's wide fleet (``solve_batch``,
+     one timed solve), each drawn in float64 on the host (F64_CELLS), the
+     counters reset just before it; per cell the wall, hit rate,
+     iterations, host syncs, busy share, launches by kernel, n and B (the
+     wide fleet's peak allocation too), the input sha256s beside the
+     manifest's, and the hold to the JAX package's float64 answer (every
+     signal and iteration count equal, x and f within JAX_F64_TOL);
+     raises unless every kernel's float64 branch of this path launched
+     inside a solve; then kernels 1-5 timed in float64 at these paths'
+     shapes against their plain versions, library calls and bounds.
 Phases 21-23, 25 and 26 each print the wall, iterations, flat steps, host
 syncs, kernel launches by shape and the device's busy share over the
 first 3 inner iterations of a second, profiled solve (21-25 also
@@ -139,6 +152,7 @@ one CUDA card and the repository checkout.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -270,9 +284,33 @@ JAX_FTOL, JAX_ITERS_RTOL = 1e-3, 0.05
 # norm stalls at 1.05 Ktol until -1, float32 evaluating it with an error
 # of ~1.5 Ktol there
 JAX_SIGNAL_SPLITS = {"mixed_maxent": (1415,), "schur_large": (0,)}
+# a float64 cell, fleet or block (F64_CELLS, resource_eq_f64,
+# lbfgs_block_f64): every signal and iteration count equal to the JAX
+# package's, x (and the coupling multipliers) and f within this many
+# (1 + |.|); no JAX_SIGNAL_SPLITS exception
+JAX_F64_TOL = 1e-8
+# float64 instances whose iteration count and result may differ from the
+# JAX package's, each classified in ROADMAP Queue 3 (cell -> indices; held
+# there as the float32 rule holds two solves that stop apart: signals
+# equal, x within STOP_APART_XTOL, f within JAX_FTOL): the two QPs of the
+# 'mehrotra' fleet (D5) whose merit penalty update divides a positive
+# barrier slope by an l1 infeasibility of pure roundoff (~2e-15; the QPs
+# have inequalities only), so nu (~1e12) and then the backtracking depth
+# follow each side's rounding; the only two of the 10,000 whose nu leaves
+# its initial 10
+JAX_F64_SPLITS = {"qp_mehrotra_f64": (8248, 8760)}
+# phase 27: the package's default float_dtype on the paths of phases 4,
+# 10, 16, 26 and 8, each cell the float32 cell of the same name (its
+# twin) with its instances drawn in float64 (``twin_arrays``)
+F64_TWINS = ("qp_adaptive", "qp_mehrotra", "mixed_portfolio", "mixed_svm",
+             "mixed_maxent", "mixed_mpc", "mixed_box_qp", "wide_portfolio",
+             "dense_condensed", "dense_ldlt")
+F64_CELLS = tuple(f"{c}_f64" for c in F64_TWINS)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
-F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
+# H100 SXM float64 on the tensor cores (34e12 outside them): the higher of
+# the card's two float64 rates, so a bound is the least time
+F64_FLOPS = 67e12
 
 
 def phase(name):
@@ -358,23 +396,32 @@ def bound(nbytes, flops, peak_flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def factor_bound(Bn, n):
-    """bound() of B f32 LDL^T factors of n x n matrices: the lower triangle
-    of A read (all the function depends on), the full L (unit diagonal and
-    zeros above it included) and d written; 2n^3/3 operations each."""
+def word_peak(dtype):
+    """(bytes a word, peak operations a second) of ``dtype``."""
+    return (8, F64_FLOPS) if dtype == torch.float64 else (4, F32_FLOPS)
+
+
+def factor_bound(Bn, n, dtype=torch.float32):
+    """bound() of B LDL^T factors of n x n matrices in ``dtype``: the lower
+    triangle of A read (all the function depends on), the full L (unit
+    diagonal and zeros above it included) and d written; 2n^3/3
+    operations each."""
     words = n * (n + 1) // 2 + n * n + n
-    return bound(Bn * words * 4, Bn * 2 * n ** 3 / 3, F32_FLOPS)
+    size, peak = word_peak(dtype)
+    return bound(Bn * words * size, Bn * 2 * n ** 3 / 3, peak)
 
 
-def solve_bound(Bn, n):
-    """bound() of B f32 solves L D L^T x = b: the strict lower triangle of
-    the unit-lower L, d and b read, x written; 2n^2 operations each."""
+def solve_bound(Bn, n, dtype=torch.float32):
+    """bound() of B solves L D L^T x = b in ``dtype``: the strict lower
+    triangle of the unit-lower L, d and b read, x written; 2n^2
+    operations each."""
     words = n * (n - 1) // 2 + 3 * n
-    return bound(Bn * words * 4, Bn * 2 * n * n, F32_FLOPS)
+    size, peak = word_peak(dtype)
+    return bound(Bn * words * size, Bn * 2 * n * n, peak)
 
 
 def factor_timings(sl, A, plain_reps=10):
-    """The small factor on A (B, n, n), f32: ms per call (CUDA events,
+    """The small factor on A (B, n, n): ms per call (CUDA events,
     median), the kernel's device ms per launch with the launches per call
     the profiler saw, the wrapper at B = 1 (its enqueue floor), the plain
     version's ms, and the bound."""
@@ -384,7 +431,7 @@ def factor_timings(sl, A, plain_reps=10):
                                 ("ldlt_factor_kernel",)),
         factor_floor=cuda_ms(lambda: sl.ldlt_factor_small(A[:1]), REPS),
         factor_plain=cuda_ms(lambda: sl.ldlt_factor_small_ref(A), plain_reps),
-        factor_bound=factor_bound(A.shape[0], A.shape[-1]))
+        factor_bound=factor_bound(A.shape[0], A.shape[-1], A.dtype))
 
 
 # (kernel, n) pairs of kernels 1-2: those phase 3 held against the plain
@@ -773,16 +820,17 @@ def rel_norm(x, xr):
                  / torch.linalg.vector_norm(xr.double()))
 
 
-def sweep_bound(K, w):
-    """bound() of one f32 backward sweep of a K-row system at block width
-    w.  The recurrence needs, of each block column that holds real rows,
-    the slab below it down to row K (the grid padding past K is an
+def sweep_bound(K, w, dtype=torch.float32):
+    """bound() of one backward sweep of a K-row system at block width w in
+    ``dtype``.  The recurrence needs, of each block column that holds real
+    rows, the slab below it down to row K (the grid padding past K is an
     identity tail) and the strict lower triangle of its diagonal block's
     unit-lower inverse; plus z and x.  Two operations per entry."""
     rows = [min(w, K - k0) for k0 in range(0, K, w)]
     slab = sum(r * (K - k0 - r) for k0, r in zip(range(0, K, w), rows))
     inv = sum(r * (r - 1) // 2 for r in rows)
-    return bound((slab + inv + 2 * K) * 4, 2 * (slab + inv), F32_FLOPS)
+    size, peak = word_peak(dtype)
+    return bound((slab + inv + 2 * K) * size, 2 * (slab + inv), peak)
 
 
 def check_large_kernels(ll, lin, device):
@@ -942,10 +990,12 @@ def kkt_single_shot(lin, ll, cfg, device, reps=10):
 
 
 def dense_path(solve, cfg, problem, data, device, counters, _sync):
-    """Phase 8 for one solver: warm-up from 0, timed solve from DENSE_X0."""
+    """Phase 8 (phase 27 in float64) for one solver: warm-up from 0, timed
+    solve from DENSE_X0, held to the cell of its solver and dtype; (record,
+    result)."""
     Dd = problem.nvar
     solve(problem, torch.zeros(Dd, device=device), cfg, params=data)
-    x0 = torch.full((Dd,), DENSE_X0, device=device)
+    x0 = torch.full((Dd,), DENSE_X0, dtype=cfg.torch_dtype, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset(_sync.COUNTS, *counters)
@@ -958,13 +1008,17 @@ def dense_path(solve, cfg, problem, data, device, counters, _sync):
                wall_s=wall, host_syncs=_sync.COUNTS["host_syncs"],
                flat_steps=_sync.COUNTS["flat_steps"],
                reg_retries=int(res.reg_retries),
-               launches={k: v for c in counters for k, v in c.items()},
+               launches={k: v for c in counters for k, v in c.items()
+                         if isinstance(k, str)},
                max_memory_bytes=torch.cuda.max_memory_allocated(device))
     if tuple(res.x.shape) != (Dd,) or not bool(torch.isfinite(res.x).all()):
         raise AssertionError("dense NLP solution is not a finite (D,) array")
-    out["jax"] = hold_to_jax(f"dense_{cfg.linear_solver}", res.signal,
-                             res.iter_count, res.fval, res.x)
-    return out
+    cell = f"dense_{cfg.linear_solver}"
+    if cfg.float_dtype == "float64":
+        cell += "_f64"
+    out["jax"] = hold_to_jax(cell, res.signal, res.iter_count, res.fval,
+                             res.x)
+    return out, res
 
 
 def cross_check(sig, its, x, res_cpu, what, min_same_iters):
@@ -1248,38 +1302,92 @@ def qp_x0():
     return (1e-6 * rng.standard_normal((B, D))).astype(np.float32)
 
 
-def mixed_buckets(device):
-    """Phase 16's buckets: name -> (problem, data batched on the card,
-    x0 (B, D))."""
-    from pyipm_tpu_torch.examples.heterogeneous_fleet import (
-        box_qp_data, box_qp_problem,
-    )
+def bucket_arrays(name, dtype=np.float32):
+    """The numpy arrays of phase 16's bucket ``name`` in ``dtype``, drawn
+    by the family's sampler (the box QPs by the heterogeneous-fleet
+    example's ``box_qp_data``, stacked as W and c)."""
+    from pyipm_tpu_torch.examples.heterogeneous_fleet import box_qp_data
     from pyipm_tpu_torch.models import applications as app
 
     n = MIXED
-    pf = app.portfolio_data(app.sample_portfolio_arrays(
-        SEED, n["portfolio"], PORTFOLIO_D), device=device)
-    svm = app.svm_data(app.sample_svm_arrays(
-        SEED, n["svm"], SVM_N, SVM_FEAT), device=device)
-    me = app.maxent_data(app.sample_maxent_arrays(
-        SEED, n["maxent"], MAXENT_D, MAXENT_M), device=device)
-    mpc = app.mpc_data(app.sample_mpc_arrays(
-        SEED, n["mpc"], MPC_NX, MPC_NU), device=device)
-    box = [box_qp_data(BOX_D, SEED + i) for i in range(n["box"])]
-    box = tuple(torch.as_tensor(np.stack(c), dtype=torch.float32,
-                                device=device) for c in zip(*box))
+    if name == "box_qp":
+        W, c = (np.stack(a).astype(dtype) for a in zip(*(
+            box_qp_data(BOX_D, SEED + i) for i in range(n["box"]))))
+        return dict(W=W, c=c)
+    draw = dict(
+        portfolio=lambda: app.sample_portfolio_arrays(
+            SEED, n["portfolio"], PORTFOLIO_D, dtype),
+        svm=lambda: app.sample_svm_arrays(SEED, n["svm"], SVM_N, SVM_FEAT,
+                                          dtype),
+        maxent=lambda: app.sample_maxent_arrays(SEED, n["maxent"], MAXENT_D,
+                                                MAXENT_M, dtype),
+        mpc=lambda: app.sample_mpc_arrays(SEED, n["mpc"], MPC_NX, MPC_NU,
+                                          dtype))
+    return draw[name]()
+
+
+def mixed_buckets(device, dtype=np.float32):
+    """Phase 16's buckets in ``dtype`` (phase 27's in float64): name ->
+    (problem, data batched on the card, x0 (B, D))."""
+    from pyipm_tpu_torch.examples.heterogeneous_fleet import box_qp_problem
+    from pyipm_tpu_torch.models import applications as app
+
+    n = MIXED
+    pf = app.portfolio_data(bucket_arrays("portfolio", dtype), device=device)
+    svm = app.svm_data(bucket_arrays("svm", dtype), device=device)
+    me = app.maxent_data(bucket_arrays("maxent", dtype), device=device)
+    mpc = app.mpc_data(bucket_arrays("mpc", dtype), device=device)
+    box = tuple(torch.as_tensor(a, device=device)
+                for a in bucket_arrays("box_qp", dtype).values())
     return {
         "portfolio": (app.make_portfolio_problem(PORTFOLIO_D), pf,
-                      app.portfolio_x0(n["portfolio"], PORTFOLIO_D,
+                      app.portfolio_x0(n["portfolio"], PORTFOLIO_D, dtype,
                                        device=device)),
         "svm": (app.make_svm_problem(SVM_N), svm, app.svm_x0(svm)),
         "maxent": (app.make_maxent_problem(MAXENT_D, MAXENT_M), me,
-                   app.maxent_x0(n["maxent"], MAXENT_D, device=device)),
+                   app.maxent_x0(n["maxent"], MAXENT_D, dtype,
+                                 device=device)),
         "mpc": (app.make_mpc_problem(MPC_T, MPC_NU), mpc,
-                app.mpc_x0(n["mpc"], MPC_T, MPC_NU, device=device)),
+                app.mpc_x0(n["mpc"], MPC_T, MPC_NU, dtype, device=device)),
         "box_qp": (box_qp_problem(BOX_D), box,
-                   torch.zeros((n["box"], BOX_D), device=device)),
+                   torch.zeros((n["box"], BOX_D), dtype=box[0].dtype,
+                               device=device)),
     }
+
+
+@functools.lru_cache(maxsize=1)
+def _wide_draw():
+    from pyipm_tpu_torch.models import applications as app
+    return app.sample_portfolio_arrays(SEED, WIDE_PORTFOLIO["B"],
+                                       WIDE_PORTFOLIO["D"], np.float64)
+
+
+def wide_arrays(dtype=np.float32):
+    """Phase 26's portfolios (phase 27's in float64): the sampler's float64
+    draw, cast (its own cast, so the same bits as drawing in ``dtype``),
+    kept from phase 26 to phase 27 (~20 s of host time a draw)."""
+    return {k: v.astype(dtype) for k, v in _wide_draw().items()}
+
+
+def twin_arrays(cell):
+    """The numpy instances of a cell of F64_TWINS or F64_CELLS as its phase
+    draws them on the host: the twin's sampler and seed, in float32, or in
+    float64 for an ``_f64`` cell."""
+    from pyipm_tpu_torch.models.random_nlp import (
+        sample_dense_arrays, sample_qp_arrays,
+    )
+    base = cell.removesuffix("_f64")
+    if base not in F64_TWINS:
+        raise ValueError(f"{cell}: not a cell of F64_TWINS or F64_CELLS")
+    dtype = np.dtype(np.float64 if base != cell else np.float32)
+    if base.startswith("qp_"):
+        return sample_qp_arrays(SEED, B, D, NLIN, dtype)
+    if base.startswith("dense_"):
+        return sample_dense_arrays(DENSE_SEED, DENSE_D, DENSE_M, DENSE_H,
+                                   dtype)
+    if base == "wide_portfolio":
+        return wide_arrays(dtype)
+    return bucket_arrays(base.removeprefix("mixed_"), dtype)
 
 
 def structure_ok(name, x, data, fval, prob):
@@ -1392,10 +1500,16 @@ def hold_to_jax(cell, signal, iters, f, x, rows=None):
     the reference keeps, x within the cell's CARD_CPU_XTOL (1 + |x|) at
     equal iteration counts and STOP_APART_XTOL at different ones; the mean
     iteration count within JAX_ITERS_RTOL of the reference's where it took
-    the TPU dispatch (recorded only where it took the CPU path).  ``rows``:
-    the reference's instances the results stand for (all by default)."""
+    the TPU dispatch (recorded only where it took the CPU path).  A
+    float64 cell is held strictly: every signal equal (no
+    JAX_SIGNAL_SPLITS exception), every iteration count equal, f within
+    JAX_F64_TOL (1 + |f|) on every instance and x on every kept row, but
+    on the instances of JAX_F64_SPLITS, whose counts may differ and whose
+    x and f are held within STOP_APART_XTOL and JAX_FTOL.  ``rows``: the
+    reference's instances the results stand for (all by default)."""
     t0 = time.perf_counter()
     entry, ref = jax_reference(cell)
+    f64 = entry["dtype"] == "float64"
 
     def host(t):
         return np.asarray(t.detach().cpu() if torch.is_tensor(t) else t)
@@ -1416,47 +1530,73 @@ def hold_to_jax(cell, signal, iters, f, x, rows=None):
     gi = np.array([g for g, _ in pairs], dtype=np.int64)
     xr = ref["x"][[k for _, k in pairs]].astype(np.float64)
     dx = (np.abs(xg[gi] - xr) / (1.0 + np.abs(xr))).max(-1, initial=0.0)
-    xtol = CARD_CPU_XTOL.get(cell.removeprefix("mixed_"), 2e-3)
-    tol = np.where(ig[gi] == ir[gi], xtol, max(xtol, STOP_APART_XTOL))
-    held = both[gi]
+    if f64:
+        # a classified instance is held as the float32 rule holds two
+        # solves that stop apart
+        apart = np.isin(rows, JAX_F64_SPLITS.get(cell, ()))
+        xtol = ftol = JAX_F64_TOL
+        tol = np.where(apart[gi], STOP_APART_XTOL, xtol)
+        ftols = np.where(apart, JAX_FTOL, ftol)
+        held, fheld = np.ones(gi.size, bool), np.ones(sg.size, bool)
+    else:
+        apart = np.zeros(sg.size, bool)
+        xtol, ftol = CARD_CPU_XTOL.get(cell.removeprefix("mixed_"),
+                                       2e-3), JAX_FTOL
+        tol = np.where(ig[gi] == ir[gi], xtol, max(xtol, STOP_APART_XTOL))
+        ftols = np.full(sg.size, ftol)
+        held, fheld = both[gi], both
     x_beyond = {int(rows[g]): float(d)
                 for g, d, t, h in zip(gi, dx, tol, held) if h and d > t}
     wide = {int(rows[g]): (float(d), int(ig[g]), int(ir[g]))
             for g, d, h in zip(gi, dx, held) if h and xtol < d}
     f_beyond = {int(rows[i]): float(df[i])
-                for i in np.flatnonzero(both & (df > JAX_FTOL))}
+                for i in np.flatnonzero(fheld & (df > ftols))}
     split = rows[sg != sr].tolist()
     its_diff = rows[ig != ir].tolist()
+    its_unclassified = rows[(ig != ir) & ~apart].tolist()
+    classified = {int(rows[i]): (float(df[i]), int(ig[i]), int(ir[i]))
+                  for i in np.flatnonzero(apart)}
     mean_g, mean_r = float(ig.mean()), float(ir.mean())
     kernel = entry["jax_path"] != "cpu"
-    out = dict(jax_path=entry["jax_path"],
+    out = dict(jax_path=entry["jax_path"], dtype=entry["dtype"],
                signals_equal=int(np.sum(sg == sr)), signals_differ=split,
                iters_equal=int(np.sum(ig == ir)), iters_differ=its_diff[:20],
                x_rows_held=int(held.sum()),
                max_rel_dx=float(dx[held].max()) if held.any() else 0.0,
-               max_rel_df=float(df[both].max()) if both.any() else 0.0,
-               stop_apart_beyond_xtol=wide, mean_iters=mean_g,
+               max_rel_df=float(df[fheld].max()) if fheld.any() else 0.0,
+               stop_apart_beyond_xtol=wide, classified=classified,
+               mean_iters=mean_g,
                jax_mean_iters=mean_r, hold_s=time.perf_counter() - t0)
+    rule = (f"float64: held within {xtol}, f {ftol}, iterations held; "
+            f"JAX_F64_SPLITS at {{index: (df, here, JAX iterations)}} "
+            f"{classified}" if f64
+            else f"beyond {xtol} (held within {STOP_APART_XTOL} at other "
+            f"counts) at {{index: (dx, here, JAX iterations)}} {wide}")
     print(f"  {cell} against the JAX package ({entry['jax_path']}): "
           f"signals equal {out['signals_equal']}/{sg.size}, differ at "
           f"{split}; iterations equal {out['iters_equal']}/{sg.size}, "
           f"differ first at {its_diff[:20]}; max |dx|/(1+|x|) "
           f"{out['max_rel_dx']:.3e} over {out['x_rows_held']} rows, max "
-          f"|df|/(1+|f|) {out['max_rel_df']:.3e} where both converged; "
-          f"beyond {xtol} (held within {STOP_APART_XTOL} at other counts) "
-          f"at {{index: (dx, here, JAX iterations)}} {wide}; mean "
-          f"iterations {mean_g:.4f} here, {mean_r:.4f} JAX "
-          f"({'held' if kernel else 'recorded'}); {out['hold_s']:.3f} s",
-          flush=True)
-    unclassified = sorted(set(split) - set(JAX_SIGNAL_SPLITS.get(cell, ())))
+          f"|df|/(1+|f|) {out['max_rel_df']:.3e} "
+          f"{'over every instance' if f64 else 'where both converged'}; "
+          f"{rule}; mean iterations {mean_g:.4f} here, {mean_r:.4f} JAX "
+          f"({'held' if kernel or f64 else 'recorded'}); "
+          f"{out['hold_s']:.3f} s", flush=True)
+    unclassified = sorted(set(split) - set(
+        () if f64 else JAX_SIGNAL_SPLITS.get(cell, ())))
     if unclassified:
         raise AssertionError(f"{cell}: signals differ from the JAX package's"
                              f" at {unclassified}, classified nowhere "
                              f"(ROADMAP Queue 3)")
+    if its_unclassified and f64:
+        raise AssertionError(f"{cell}: iteration counts differ from the JAX "
+                             f"package's in float64 at "
+                             f"{its_unclassified[:20]}, classified nowhere "
+                             f"(ROADMAP Queue 3)")
     if x_beyond or f_beyond:
         raise AssertionError(f"{cell}: x beyond {xtol} (1+|x|) (or "
                              f"{STOP_APART_XTOL} at other iteration counts) "
-                             f"at {x_beyond}; f beyond {JAX_FTOL} (1+|f|) at "
+                             f"at {x_beyond}; f beyond {ftol} (1+|f|) at "
                              f"{f_beyond}")
     if kernel and abs(mean_g - mean_r) > JAX_ITERS_RTOL * mean_r:
         raise AssertionError(f"{cell}: mean iterations {mean_g} against the "
@@ -1773,10 +1913,6 @@ BLOCK_CELLS = dict(
 # this many values, or the first BLOCK_X_VALUES / K entries of every block
 # where one block is larger
 BLOCK_X_VALUES = 16_384
-# a float64 block cell: x (and lc, f) within this many (1 + |.|) of the
-# JAX package's at equal signals and iterations (phase 25's card-against-
-# CPU bound)
-BLOCK_F64_TOL = 1e-8
 # a float32 block cell: x and the coupling multipliers within this many
 # (1 + |.|) at equal iteration counts (STOP_APART_XTOL at others)
 BLOCK_F32_XTOL = 2e-3
@@ -1799,12 +1935,14 @@ def busy_share(fn):
     """(result, device busy ms, wall s, idle share) of one call of ``fn``
     under ``torch.profiler``: the device's self time (kernels, copies,
     memsets) over the call's wall (the profiler's own cost included in
-    the wall)."""
+    the wall).  It records the device's activity alone: with the host's
+    too the busy ms read the same, but a host-bound solve's thousands of
+    host events take the profiler many times as long to process
+    (``scripts/time_f64_phase.py --profiler-cost`` times both)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -2086,7 +2224,7 @@ def hold_block_to_jax(cell, digests, res, what="the card"):
     drew) against the manifest's; then the signal equal (unless
     JAX_SIGNAL_SPLITS classifies the cell's solve, index 0); in float64
     the iteration count equal and x, the coupling multipliers and f within
-    BLOCK_F64_TOL (1 + |.|); in float32 x and the coupling multipliers
+    JAX_F64_TOL (1 + |.|); in float32 x and the coupling multipliers
     within BLOCK_F32_XTOL (1 + |.|) at equal iteration counts and
     STOP_APART_XTOL at others, f within JAX_FTOL (1 + |f|), the counts
     printed beside the reference's and not held.  Where the signals split
@@ -2114,7 +2252,7 @@ def hold_block_to_jax(cell, digests, res, what="the card"):
             for k in ("lc", "lci")]
     f64 = entry["dtype"] == "float64"
     if f64:
-        xtol = ftol = BLOCK_F64_TOL
+        xtol = ftol = JAX_F64_TOL
     else:
         xtol = BLOCK_F32_XTOL if (ig, sg) == (ir, sr) else max(
             BLOCK_F32_XTOL, STOP_APART_XTOL)
@@ -2556,8 +2694,7 @@ def wide_fleet_phase(cfg, device, counters, sl, ll, lin, _sync):
     from pyipm_tpu_torch.ops.condensed import _Condensed, _split
     Bn, Dn = WIDE_PORTFOLIO["B"], WIDE_PORTFOLIO["D"]
     t0 = time.perf_counter()
-    data = app.portfolio_data(app.sample_portfolio_arrays(SEED, Bn, Dn),
-                              device=device)
+    data = app.portfolio_data(wide_arrays(), device=device)
     x0 = app.portfolio_x0(Bn, Dn, device=device)
     prob = app.make_portfolio_problem(Dn)
     torch.cuda.synchronize()
@@ -2704,6 +2841,426 @@ def wide_fleet_phase(cfg, device, counters, sl, ll, lin, _sync):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 27: the package's default float64 on the card at full size
+# kernels 1-5 timed in float64 at the shapes of phase 27's paths (kernel 1
+# at the fleet's n = 16 and 36 and the wide branch's portfolio and SVM
+# sizes, kernel 2 at the fleet's, MPC's and SVM's; kernel 3 alone and on
+# the wide fleet's batch; kernels 4-5 at npad 5120)
+F64_FACTOR_SHAPES = ((B, 16), (B, 36), (PATH_B, 65), (PATH_B, 97))
+F64_SOLVE_SHAPES = ((B, 16), (B, 36), (PATH_B, 40), (PATH_B, 97))
+# the float64 branches a solve of phase 27 must launch: kernels 1-2 at
+# these n and at one n of the wide branch (64 < n <= 128) at least
+F64_NEED_N = dict(factor=(16, 36), solve=(16, 36, 40))
+# the profiler traces a phase-27 kernel row takes at most (device_ms): a
+# trace that drops a launch's events is taken again
+F64_TRACES = 3
+
+
+def f64_arrays_check(cell, arrays, entry):
+    """Print the drawn instances' sha256s beside the manifest's: (equal,
+    digests).  A difference is printed, not raised: a sampler whose products
+    run through numpy's ``einsum`` or BLAS (``sample_qp_arrays``,
+    ``sample_portfolio_arrays``, ``sample_svm_arrays``,
+    ``sample_dense_arrays``, ``box_qp_data``) may round them differently
+    on another host's CPU."""
+    got = input_digests(arrays)
+    ref = entry.get("inputs", {})
+    differ = sorted(k for k in set(got) | set(ref) if got.get(k) != ref.get(k))
+    short = {k: (got.get(k, "-")[:16], ref.get(k, "-")[:16])
+             for k in sorted(got)}
+    print(f"  {cell} inputs (sha256 here, manifest): {short}; "
+          + (f"differ at {differ} (another host's rounding of the "
+             f"sampler's products; the hold runs at its bounds all the "
+             f"same)" if differ else "all equal"), flush=True)
+    return not differ, got
+
+
+def f64_cell(cell, res, wall, arrays, entry, profile, sl, ll, _sync,
+             rows=None):
+    """The record of one timed float64 solve of ``cell``: wall, hit rate,
+    iterations, host syncs, launches by kernel, n and B (the counters reset
+    just before it), the busy share of ``profile`` (3 inner iterations of
+    another solve), the input digests, and the hold to the JAX package.
+    Raises unless every tensor of the result is float64."""
+    bad = [k for k in ("x", "fval", "kkt", "lda")
+           if getattr(res, k).dtype != torch.float64]
+    if bad:
+        raise AssertionError(f"{cell}: {bad} of the solve are not float64")
+    sig = res.signal.reshape(-1).cpu().numpy()
+    its = res.iter_count.reshape(-1).cpu().numpy()
+    rec = dict(instances=int(sig.size),
+               hit_rate=float(np.mean(np.isin(sig, (1, 2)))),
+               mean_iters=float(its.mean()), max_iters=int(its.max()),
+               signals={str(k): int(v) for k, v in
+                        zip(*np.unique(sig, return_counts=True))},
+               wall_s=wall, iters_per_s=float(its.sum()) / wall,
+               host_syncs=_sync.COUNTS["host_syncs"],
+               flat_steps=_sync.COUNTS["flat_steps"],
+               launches={**sl.LAUNCHES, **ll.LAUNCHES},
+               launches_by_n=by_n(sl),
+               kernel3_by_b={str(k[1]): v for k, v in
+                             ll.LAUNCHES_BY_B.items() if v})
+    if not bool(torch.isfinite(res.x).all()):
+        raise AssertionError(f"{cell}: non-finite solution")
+    _, busy, pwall, idle = busy_share(profile)
+    rec.update(profiled_iters=3, busy_ms=busy, profiled_wall_s=pwall,
+               idle_share=idle)
+    rec["inputs_equal"], _ = f64_arrays_check(cell, arrays, entry)
+    print(f"  {cell}: {sig.size} instances, hit rate {rec['hit_rate']:.4f}, "
+          f"mean {rec['mean_iters']:.4f}, max {rec['max_iters']} iterations, "
+          f"signals {rec['signals']}; wall {wall:.4f} s "
+          f"({rec['iters_per_s']:.1f} iters/s), host syncs "
+          f"{rec['host_syncs']}, flat steps {rec['flat_steps']}; launches "
+          f"{rec['launches']}, by n {rec['launches_by_n']}, kernel 3 by B "
+          f"{rec['kernel3_by_b']}; first 3 iterations profiled: device busy "
+          f"{busy:.1f} ms of {pwall:.3f} s (idle {100 * idle:.1f}%)",
+          flush=True)
+    take_rows = (lambda t: t) if rows is None else (lambda t: t[:rows])
+    rec["jax"] = hold_to_jax(cell, *(take_rows(t) for t in (
+        res.signal, res.iter_count, res.fval, res.x)))
+    return rec
+
+
+def f64_kernel_rows(sl, ll, lin, device):
+    """Kernels 1-5 in float64 at the shapes of phase 27's paths against
+    their plain versions: ms (CUDA events), device ms per launch, the plain
+    version's ms, the library call's where one exists
+    (``torch.linalg.ldl_solve`` for kernel 2, ``solve_triangular`` for the
+    sweeps; one call, timed after a warm-up at B = 1), the max abs
+    difference from the plain version and the bound (8-byte words,
+    F64_FLOPS)."""
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(SEED + 27)
+    rows = {}
+
+    def once_ms(fn, warm, what):
+        try:
+            warm()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1)
+        except RuntimeError as exc:
+            print(f"  {what} unavailable: {exc}", flush=True)
+            return None
+
+    for Bn, n in F64_FACTOR_SHAPES:
+        t_row = time.perf_counter()
+        A = rand_sym(gen, Bn, n, f64, device)
+        L, d = sl.ldlt_factor_small(A)
+        Lr, dr = sl.ldlt_factor_small_ref(A)
+        rows[f"ldlt_factor_small_f64_{Bn}x{n}"] = dict(
+            max_abs_err=max(float((L - Lr).abs().max()),
+                            float((d - dr).abs().max())),
+            ms=cuda_ms(lambda: sl.ldlt_factor_small(A), REPS),
+            device_ms=device_ms(lambda: sl.ldlt_factor_small(A),
+                                ("ldlt_factor_kernel",), traces=F64_TRACES),
+            plain_ms=cuda_ms(lambda: sl.ldlt_factor_small_ref(A), 3),
+            library_ms=None, bound=factor_bound(Bn, n, f64), shape=[Bn, n],
+            row_s=time.perf_counter() - t_row)
+    for Bn, n in F64_SOLVE_SHAPES:
+        t_row = time.perf_counter()
+        A = rand_sym(gen, Bn, n, f64, device)
+        b = torch.randn(Bn, n, generator=gen, dtype=f64).to(device)
+        L, d = sl.ldlt_factor_small(A)
+        LD = torch.tril(L, -1) + torch.diag_embed(d)
+        piv = torch.arange(1, n + 1, dtype=torch.int32,
+                           device=device).expand(Bn, n).contiguous()
+        rows[f"ldlt_solve_small_f64_{Bn}x{n}"] = dict(
+            max_abs_err=float((sl.ldlt_solve_small(L, d, b)
+                               - sl.ldlt_solve_small_ref(L, d, b))
+                              .abs().max()),
+            ms=cuda_ms(lambda: sl.ldlt_solve_small(L, d, b), REPS),
+            device_ms=device_ms(lambda: sl.ldlt_solve_small(L, d, b),
+                                ("ldlt_solve_kernel",), traces=F64_TRACES),
+            plain_ms=cuda_ms(lambda: sl.ldlt_solve_small_ref(L, d, b), 3),
+            library_ms=once_ms(
+                lambda: torch.linalg.ldl_solve(LD, piv, b[..., None]),
+                lambda: torch.linalg.ldl_solve(LD[:1], piv[:1],
+                                               b[:1, :, None]),
+                "torch.linalg.ldl_solve"),
+            bound=solve_bound(Bn, n, f64), shape=[Bn, n],
+            row_s=time.perf_counter() - t_row)
+        del A, L, d, LD, piv, b
+    P1 = rand_sym(gen, 1, 128, f64, device)[0].contiguous()
+    Pb = rand_sym(gen, WIDE_PORTFOLIO["B"], 128, f64, device)
+    for name, P in (("panel_ldlt_f64", P1),
+                    (f"panel_ldlt_batched_{WIDE_PORTFOLIO['B']}_f64", Pb)):
+        t_row = time.perf_counter()
+        L, d = ll.panel_ldlt(P)
+        Lr, dr = ll.panel_ldlt_ref(P)
+        rows[name] = dict(
+            max_abs_err=max(float((L - Lr).abs().max()),
+                            float((d - dr).abs().max())),
+            ms=cuda_ms(lambda: ll.panel_ldlt(P), REPS),
+            device_ms=device_ms(lambda: ll.panel_ldlt(P),
+                                ("panel_ldlt_kernel",), traces=F64_TRACES),
+            plain_ms=cuda_ms(lambda: ll.panel_ldlt_ref(P), 3),
+            library_ms=None,
+            bound=factor_bound(P.shape[0] if P.dim() == 3 else 1, 128, f64),
+            shape=list(P.shape), row_s=time.perf_counter() - t_row)
+    del P1, Pb
+    t_row = time.perf_counter()
+    H, _ = kkt_matrix_bench(4096, 256, f64, device)
+    Hs = lin.ruiz_scale(H[None])[0][0]
+    Lp, _, invp = lin.ldlt_factor_panels(Hs)
+    Lb, _, invb = lin.ldlt_factor_blocks(Hs, group=8)
+    z = torch.randn(Lp.shape[0], generator=gen, dtype=f64).to(device)
+    for name, fn, Lf, inv, kernels in (
+            ("bwd_sweep_panels_f64", ll.bwd_sweep_panels, Lp, invp,
+             ("sweep_panels_kernel",)),
+            ("bwd_sweep_blocks_f64", ll.bwd_sweep_blocks, Lb, invb,
+             ("sweep_blocks_kernel",))):
+        Lt = Lf.mT
+        rows[name] = dict(
+            max_abs_err=float((fn(Lf, z, inv) - ll.bwd_sweep_ref(Lf, z, inv))
+                              .abs().max()),
+            ms=cuda_ms(lambda: fn(Lf, z, inv), REPS),
+            device_ms=device_ms(lambda: fn(Lf, z, inv), kernels,
+                                traces=F64_TRACES),
+            plain_ms=cuda_ms(lambda: ll.bwd_sweep_ref(Lf, z, inv), 10),
+            library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+                Lt, z[:, None], upper=True, unitriangular=True), 10),
+            bound=sweep_bound(Hs.shape[0], inv.shape[-1], f64),
+            shape=[Lf.shape[0], inv.shape[-1]],
+            row_s=time.perf_counter() - t_row)
+        t_row = time.perf_counter()
+    del H, Hs, Lp, invp, Lb, invb
+    for name, r in rows.items():
+        dev = r["device_ms"]
+        print(f"  f64 {name} at {r['shape']}: {r['ms']:.4f} ms per call "
+              f"(CUDA events, median), device {dev[0]:.4f} ms per launch in "
+              f"{dev[2]} launches per call (by {dev[1]}; "
+              f"{dev[0] / r['bound'][0]:.2f}x the bound), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound'][0]:.5f} ms by {r['bound'][1]}; max |kernel - "
+              f"plain| {r['max_abs_err']:.3e}; {r['row_s']:.1f} s", flush=True)
+    return rows
+
+
+def f64_phase(counters, sl, ll, lin, _sync, device):
+    """Phase 27: the package's default float_dtype (an ``IPMConfig()``
+    left at float64) on the card at full size, each path through the entry
+    point of its float32 twin: phase 4's and phase 10's fleets
+    (``solve_batch``), phase 8's dense NLP with 'condensed' and 'ldlt'
+    (``solve``), phase 16's buckets (``solve_fleet``) and phase 26's wide
+    fleet (``solve_batch``, one timed solve, its peak allocation); each on
+    float64 instances drawn on the host (``twin_arrays``), the counters
+    reset just before its timed solve, held to its F64_CELLS reference by
+    ``hold_to_jax`` (every signal and iteration count equal, x and f within
+    JAX_F64_TOL).  Raises if a solve's tensors are not float64, if a
+    kernel's float64 branch was not launched inside a solve (kernels 1-2 at
+    F64_NEED_N and in the wide branch, kernel 3 on one panel and on a
+    batch, kernels 4 and 5) or if a hold fails; then times kernels 1-5 in
+    float64 (``f64_kernel_rows``)."""
+    import gc
+
+    from pyipm_tpu_torch import IPMConfig, solve, solve_batch, solve_fleet
+    from pyipm_tpu_torch.config import matmul_precision
+    from pyipm_tpu_torch.core.linesearch import take
+    from pyipm_tpu_torch.core.solver import BatchSolver
+    from pyipm_tpu_torch.models import applications as app
+    from pyipm_tpu_torch.models.random_nlp import (
+        dense_nlp_data, make_dense_nlp_problem, make_qp_problem, qp_data,
+    )
+    t_phase = time.perf_counter()
+    cfg = IPMConfig(verbosity=0, Ktol=1e-4)
+    if cfg.float_dtype != "float64":
+        raise AssertionError(f"IPMConfig() defaults to {cfg.float_dtype}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+
+    def profile(prob, x0, data, c):
+        solver = BatchSolver(prob, c)
+        st0 = solver.init_state(x0, data)
+        return lambda: solver.run_budget(st0, 3, data)
+
+    # phases 4 and 10: the 10,000-QP fleet, 'adaptive' and 'mehrotra'
+    problem = make_qp_problem(D, NLIN)
+    for mu in ("adaptive", "mehrotra"):
+        t_cell = time.perf_counter()
+        cell = f"qp_{mu}_f64"
+        entry = jax_reference(cell)[0]
+        arrays = twin_arrays(cell)
+        data = qp_data(arrays, device=device)
+        x0 = torch.as_tensor(qp_x0(), device=device).double()
+        c = cfg.replace(mu_strategy=mu)
+        solve_batch(problem, x0[:N_CROSS], c, params=take(
+            data, torch.arange(N_CROSS, device=device)))         # warm-up
+        res, wall = timed(lambda: solve_batch(problem, x0, c, params=data),
+                          counters)
+        out[cell] = f64_cell(cell, res, wall, arrays, entry,
+                             profile(problem, x0, data, c), sl, ll, _sync)
+        out[cell]["cell_s"] = time.perf_counter() - t_cell
+        del res, data
+    # phase 8: the dense NLP, 'condensed' and 'ldlt'
+    dproblem = make_dense_nlp_problem(DENSE_D, DENSE_M)
+    for solver in ("condensed", "ldlt"):
+        t_cell = time.perf_counter()
+        cell = f"dense_{solver}_f64"
+        entry = jax_reference(cell)[0]
+        arrays = twin_arrays(cell)
+        ddata = dense_nlp_data(arrays, device=device)
+        dcfg = cfg.replace(linear_solver=solver)
+        rec, res = dense_path(solve, dcfg, dproblem, ddata, device,
+                              (sl.LAUNCHES, sl.LAUNCHES_BY_N, ll.LAUNCHES,
+                               ll.LAUNCHES_BY_B), _sync)
+        rec.update(launches_by_n=by_n(sl), kernel3_by_b={
+            str(k[1]): v for k, v in ll.LAUNCHES_BY_B.items() if v})
+        p1 = type(ddata)(*(t[None] for t in ddata))
+        x1 = torch.full((1, DENSE_D), DENSE_X0, dtype=torch.float64,
+                        device=device)
+        _, busy, pwall, idle = busy_share(profile(dproblem, x1, p1, dcfg))
+        rec.update(busy_ms=busy, profiled_wall_s=pwall, idle_share=idle)
+        rec["inputs_equal"], _ = f64_arrays_check(cell, arrays, entry)
+        if res.x.dtype != torch.float64:
+            raise AssertionError(f"{cell}: x is {res.x.dtype}")
+        print(f"  {cell}: signal {rec['signal']} iterations {rec['iters']} "
+              f"max KKT {rec['kkt_max']:.3e} wall {rec['wall_s']:.4f} s host "
+              f"syncs {rec['host_syncs']} flat steps {rec['flat_steps']} "
+              f"launches {rec['launches']}, kernel 3 by B "
+              f"{rec['kernel3_by_b']}; max_memory_allocated "
+              f"{rec['max_memory_bytes']} B; first 3 iterations profiled: "
+              f"device busy {busy:.1f} ms of {pwall:.3f} s (idle "
+              f"{100 * idle:.1f}%)", flush=True)
+        if rec["signal"] not in (1, 2):
+            raise AssertionError(f"{cell}: signal {rec['signal']}")
+        out[cell] = rec
+        rec["cell_s"] = time.perf_counter() - t_cell
+        del ddata, p1, res
+    # phase 16: each bucket alone through solve_fleet
+    t_cell = time.perf_counter()
+    for name, (prob, data, x0b) in mixed_buckets(device, np.float64).items():
+        cell = f"mixed_{name}_f64"
+        entry = jax_reference(cell)[0]
+        Bn = x0b.shape[0]
+        params = [take(data, i) for i in range(Bn)]
+        solve_fleet([prob] * 64, list(x0b[:64]), cfg, params=params[:64],
+                    device=device)                             # warm-up
+        res, wall = timed(lambda: stack(solve_fleet(
+            [prob] * Bn, list(x0b), cfg, params=params, device=device)),
+            counters)
+        out[cell] = f64_cell(cell, res, wall, twin_arrays(cell), entry,
+                             profile(prob, x0b, data, cfg), sl, ll, _sync)
+        out[cell]["cell_s"] = time.perf_counter() - t_cell
+        t_cell = time.perf_counter()
+        del res, params
+    # phase 26: the wide portfolio fleet, one timed solve
+    t_cell = time.perf_counter()
+    cell = "wide_portfolio_f64"
+    entry = jax_reference(cell)[0]
+    Bn, Dn = WIDE_PORTFOLIO["B"], WIDE_PORTFOLIO["D"]
+    arrays = twin_arrays(cell)
+    data = app.portfolio_data(arrays, device=device)
+    x0 = app.portfolio_x0(Bn, Dn, np.float64, device=device)
+    prob = app.make_portfolio_problem(Dn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    res, wall = timed(lambda: solve_batch(prob, x0, cfg, params=data),
+                      counters)
+    peak = torch.cuda.max_memory_allocated(device)
+    out[cell] = f64_cell(cell, res, wall, arrays, entry,
+                         profile(prob, x0, data, cfg), sl, ll, _sync,
+                         rows=WIDE_JAX_ROWS)
+    out[cell].update(max_memory_bytes=peak,
+                     cell_s=time.perf_counter() - t_cell)
+    print(f"  {cell}: peak allocation {peak} B", flush=True)
+    del res, data, arrays
+    _wide_draw.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every float64 branch launched inside a solve
+    seen = {}
+    for rec in out.values():
+        for k, by in rec["launches_by_n"].items():
+            seen.setdefault(k, set()).update(int(n) for n in by)
+    b3 = {int(b) for rec in out.values() for b in rec["kernel3_by_b"]}
+    missing = [f"kernel {1 if k == 'factor' else 2} at n = {n}"
+               for k, ns in F64_NEED_N.items() for n in ns
+               if n not in seen.get(k, ())]
+    missing += [f"kernel {1 if k == 'factor' else 2} in the wide branch"
+                for k in ("factor", "solve")
+                if not any(64 < n <= 128 for n in seen.get(k, ()))]
+    missing += [what for what, ok in (
+        ("kernel 3 on one panel", 1 in b3),
+        ("kernel 3 on a batch", any(b > 1 for b in b3)),
+        ("kernel 4", out["dense_ldlt_f64"]["launches"]["bwd_sweep_panels"]),
+        ("kernel 5", out["dense_condensed_f64"]["launches"][
+            "bwd_sweep_blocks"])) if not ok]
+    print(f"  float64 launches inside the solves: kernel 1 at n = "
+          f"{sorted(seen.get('factor', ()))}, kernel 2 at n = "
+          f"{sorted(seen.get('solve', ()))}, kernel 3 at B = {sorted(b3)}, "
+          f"kernel 4 {out['dense_ldlt_f64']['launches']['bwd_sweep_panels']}"
+          f", kernel 5 "
+          f"{out['dense_condensed_f64']['launches']['bwd_sweep_blocks']}",
+          flush=True)
+    if missing:
+        raise AssertionError(f"float64 branches not launched inside a solve:"
+                             f" {missing}")
+    t_rows = time.perf_counter()
+    with matmul_precision(cfg.matmul_precision):
+        out["kernels"] = f64_kernel_rows(sl, ll, lin, device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    by_cell = {k: round(v["cell_s"], 1) for k, v in out.items()
+               if isinstance(v, dict) and "cell_s" in v}
+    print(f"  phase 27: {out['phase_s']:.1f} s; seconds by cell (its draw, "
+          f"warm-up, solve, profile and hold) {by_cell}, the kernel rows "
+          f"{time.perf_counter() - t_rows:.1f}", flush=True)
+    return out
+
+
+def f64_record_rows(row, f64):
+    """The kernels line's float64 rows (``row(...)`` of main), each with
+    its launches inside phase 27's solve of the path it was timed for."""
+    small = "pyipm_tpu_torch/csrc/small_ldlt.cu"
+    panel = "pyipm_tpu_torch/csrc/panel_ldlt.cu"
+    cells = {k: v for k, v in f64.items() if isinstance(v, dict)
+             and "launches" in v}
+
+    def at_n(cell, kernel, n):
+        return cells[cell]["launches_by_n"].get(kernel, {}).get(str(n), 0)
+
+    # the cell whose solve gives each shape's launches
+    of_n = {16: "qp_adaptive_f64", 36: "qp_adaptive_f64",
+            40: "mixed_mpc_f64", 65: "mixed_portfolio_f64",
+            97: "mixed_svm_f64"}
+    out = []
+    for name, r in f64["kernels"].items():
+        if name.startswith("ldlt_"):
+            kernel = "factor" if "factor" in name else "solve"
+            n = r["shape"][1]
+            launches = at_n(of_n[n], kernel, n)
+            src, rep = small, ("pyipm_tpu/ops/pallas_ldlt.py:49"
+                               if kernel == "factor" else
+                               "pyipm_tpu/ops/pallas_ldlt.py:92")
+        elif name == "panel_ldlt_f64":
+            launches = sum(cells[c]["kernel3_by_b"].get("1", 0)
+                           for c in ("dense_condensed_f64", "dense_ldlt_f64"))
+            src, rep = panel, "pyipm_tpu/ops/pallas_ldlt.py:198"
+        elif name.startswith("panel_ldlt_batched"):
+            launches = cells["wide_portfolio_f64"]["kernel3_by_b"].get(
+                str(WIDE_PORTFOLIO["B"]), 0)
+            src, rep = panel, "pyipm_tpu/ops/pallas_ldlt.py:198"
+        elif name == "bwd_sweep_panels_f64":
+            launches = cells["dense_ldlt_f64"]["launches"]["bwd_sweep_panels"]
+            src = "pyipm_tpu_torch/csrc/bwd_sweep_panels.cu"
+            rep = "pyipm_tpu/ops/pallas_ldlt.py:523"
+        else:
+            launches = cells["dense_condensed_f64"]["launches"][
+                "bwd_sweep_blocks"]
+            src = "pyipm_tpu_torch/csrc/bwd_sweep_blocks.cu"
+            rep = "pyipm_tpu/ops/pallas_ldlt.py:386"
+        out.append(row(name, rep, src, launches, r, r["shape"]))
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2812,7 +3369,7 @@ def main() -> int:
     sweep_of = {"condensed": "bwd_sweep_blocks", "ldlt": "bwd_sweep_panels"}
     for solver in ("condensed", "ldlt"):
         dcfg = cfg.replace(linear_solver=solver)
-        r = dense_path(solve, dcfg, dproblem, ddata, device,
+        r, _ = dense_path(solve, dcfg, dproblem, ddata, device,
                        (sl.LAUNCHES, ll.LAUNCHES), _sync)
         dense[solver] = r
         print(f"  {solver}: signal {r['signal']} iterations {r['iters']} "
@@ -3019,6 +3576,13 @@ def main() -> int:
     phase(f"26 {WIDE_PORTFOLIO['B']} portfolios of {WIDE_PORTFOLIO['D']} "
           f"assets, float32: the batched K > 128 path")
     wide = wide_fleet_phase(cfg, device, counters, sl, ll, lin, _sync)
+    phase("27 the package's default float64 at full size: phases 4, 10, 8, "
+          "16 and 26 held to the JAX package")
+    f64 = f64_phase(counters, sl, ll, lin, _sync, device)
+    reset(sl.LAUNCHES_BY_N)
+    held_f64 = hold_seen_sizes(sl, device)
+    print(f"  kernels 1-2 held to their plain versions at the new sizes n = "
+          f"{held_f64} (B = {PATH_B})", flush=True)
 
     def row(name, replaces, source, launches_, rec_, shape):
         return {"name": name, "route": "cuda", "source": source,
@@ -3100,6 +3664,7 @@ def main() -> int:
             "pyipm_tpu_torch/csrc/bwd_sweep_blocks.cu",
             path_launches["condensed"]["bwd_sweep_blocks"],
             big["bwd_sweep_blocks"], big["bwd_sweep_blocks"]["shape"]),
+        *f64_record_rows(row, f64),
     ], "launches_by_path": {"fleet": launches, **path_launches,
                             "mehrotra_fleet": mlaunches,
                             "lbfgs_dense": lbfgs["launches"],
@@ -3144,6 +3709,8 @@ def main() -> int:
         "schur_factor": schur_factor, "schur": schur,
         "sizes_held_after_phase_23": held_schur,
         "wide_portfolio": wide,
+        "float64": {k: v for k, v in f64.items() if k != "kernels"},
+        "sizes_held_after_phase_27": held_f64,
         "total_s": time.perf_counter() - T_START}
     print(f"chip_smoke: all phases passed in {record['total_s']:.1f} s")
     print(smi)

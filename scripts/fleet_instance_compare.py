@@ -1,13 +1,18 @@
-"""Hold one instance of ``chip_smoke.py``'s mixed fleet (phase 16) to
-itself across devices and packages, then step it one inner iteration at a
-time and stop at the first branch that differs.
+"""Hold one instance of ``chip_smoke.py``'s mixed fleet (phase 16) or
+10k-QP fleet (phases 4, 10 and 27) to itself across devices and packages,
+then step it one inner iteration at a time and stop at the first branch
+that differs.
 
     python scripts/fleet_instance_compare.py BUCKET INDEX
-        [--dtype float32|float64] [--iters N] [--context alone|bucket]
-        [--no-bucket-runs] [--no-jax] [--restart] [--plain-solve]
+        [--dtype float32|float64] [--mu-strategy adaptive|mehrotra]
+        [--iters N] [--context alone|bucket] [--no-bucket-runs]
+        [--no-jax] [--restart] [--plain-solve]
 
 BUCKET is one of phase 16's buckets (portfolio, svm, maxent, mpc,
-box_qp), drawn by ``chip_smoke.mixed_buckets`` with the phase's seed.
+box_qp), drawn by ``chip_smoke.mixed_buckets`` with the phase's seed, or
+``qp``, the 10,000 QPs of ``chip_smoke.twin_arrays`` solved by
+``solve_batch``; each drawn in the run's dtype (phase 27's float64 cells
+with ``--dtype float64``).
 INDEX is an instance of it, or ``auto``: the first instance whose signal
 (else whose iteration count) differs between the card and the CPU in the
 whole-bucket runs.
@@ -75,7 +80,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-BUCKETS = ("portfolio", "svm", "maxent", "mpc", "box_qp")
+BUCKETS = ("portfolio", "svm", "maxent", "mpc", "box_qp", "qp")
 FIELDS = ("x", "s", "lda", "mu", "nu", "delta", "kkt", "signal",
           "iter_count", "outer", "inner", "inner_done", "in_inner",
           "f_past", "alpha", "reg_retries")
@@ -208,6 +213,7 @@ class PortSide:
         D, M, N = prob.nvar, prob.neq, prob.nineq
         with torch.no_grad():
             dz, st1 = self.solver.direction(st, p)
+            st = st._replace(mu=st1.mu)         # 'mehrotra' sets mu here
             nu = st.nu
             bdot = cl1 = torch.zeros_like(nu)
             if prob.ncon:
@@ -318,8 +324,13 @@ class JaxSide:
         self.jax, self.jnp, self.japp = jax, jnp, japp
         prob, data, x0 = bucket
         self.dt = cfg.float_dtype
-        self.jcfg = JCfg(float_dtype=self.dt, verbosity=0, Ktol=cfg.Ktol)
+        self.jcfg = JCfg(float_dtype=self.dt, verbosity=0, Ktol=cfg.Ktol,
+                         mu_strategy=cfg.mu_strategy)
+        from pyipm_tpu.models import random_nlp as jrn
+        self.jrn = jrn
         cls, make = {
+            "qp": (jrn.QPData,
+                   lambda d: jrn.make_qp_problem(d, cs.D, cs.NLIN)),
             "portfolio": (japp.PortfolioData, japp.make_portfolio_problem),
             "svm": (japp.SVMData, japp.make_svm_problem),
             "maxent": (japp.MaxEntData, japp.make_maxent_problem),
@@ -337,10 +348,13 @@ class JaxSide:
             for f in self.cls._fields))
 
     def alone(self, i):
-        size = {"portfolio": cs.PORTFOLIO_D, "svm": cs.SVM_N,
-                "maxent": cs.MAXENT_D, "mpc": cs.MPC_T}[self.bucket_name]
-        solver = getattr(self.japp, f"make_{self.bucket_name}_batch_solver")(
-            self.jcfg, size)
+        if self.bucket_name == "qp":
+            solver = self.jrn.make_qp_batch_solver(self.jcfg, cs.D, cs.NLIN)
+        else:
+            size = {"portfolio": cs.PORTFOLIO_D, "svm": cs.SVM_N,
+                    "maxent": cs.MAXENT_D, "mpc": cs.MPC_T}[self.bucket_name]
+            solver = getattr(self.japp, f"make_{self.bucket_name}_batch_"
+                             "solver")(self.jcfg, size)
         r = solver(self.jnp.asarray(self.x0[i:i + 1]), self.data([i]))
         return int(r.signal[0]), int(r.iter_count[0])
 
@@ -380,14 +394,23 @@ class JaxSide:
         from pyipm_tpu.core import kkt as K
         from pyipm_tpu.core.linesearch import max_step_ftb, search
         from pyipm_tpu.core.updates import nu_threshold
-        from pyipm_tpu.ops.condensed import condensed_direction
+        from pyipm_tpu.ops.condensed import (
+            condensed_direction, condensed_direction_mehrotra,
+        )
         prob, cfg = self.prob, self.jcfg
         D, M, N = prob.nvar, prob.neq, prob.nineq
         dtype = st.x.dtype
-        dz, delta_new, retries = jax.jit(
-            lambda x, s, l, mu, d: condensed_direction(prob, cfg, x, s, l, mu,
-                                                       d))(
-            st.x, st.s, st.lda, st.mu, st.delta)
+        if cfg.mu_strategy == "mehrotra" and N:
+            dz, mu_new, delta_new, retries = jax.jit(
+                lambda x, s, l, mu, d: condensed_direction_mehrotra(
+                    prob, cfg, x, s, l, mu, d, cfg.mu_floor))(
+                st.x, st.s, st.lda, st.mu, st.delta)
+            st = st._replace(mu=mu_new)
+        else:
+            dz, delta_new, retries = jax.jit(
+                lambda x, s, l, mu, d: condensed_direction(
+                    prob, cfg, x, s, l, mu, d))(
+                st.x, st.s, st.lda, st.mu, st.delta)
         nu = st.nu
         bdot = cl1 = jnp.zeros((), dtype)
         if prob.ncon:
@@ -556,6 +579,8 @@ def main():
     ap.add_argument("index")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "float64"))
+    ap.add_argument("--mu-strategy", default="adaptive",
+                    choices=("adaptive", "mehrotra"))
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--context", default="alone",
                     choices=("alone", "bucket"))
@@ -567,9 +592,17 @@ def main():
 
     from pyipm_tpu_torch import IPMConfig
     from pyipm_tpu_torch.ops import linalg, small_ldlt
-    cfg = IPMConfig(float_dtype=args.dtype, verbosity=0, Ktol=1e-4)
-    buckets = cs.mixed_buckets(torch.device("cpu"))
-    bucket = buckets[args.bucket]
+    cfg = IPMConfig(float_dtype=args.dtype, verbosity=0, Ktol=1e-4,
+                    mu_strategy=args.mu_strategy)
+    host = torch.device("cpu")
+    if args.bucket == "qp":
+        from pyipm_tpu_torch.models.random_nlp import make_qp_problem, qp_data
+        twin = "qp_adaptive" + ("_f64" if args.dtype == "float64" else "")
+        bucket = (make_qp_problem(cs.D, cs.NLIN),
+                  qp_data(cs.twin_arrays(twin), device=host),
+                  torch.as_tensor(cs.qp_x0()))
+    else:
+        bucket = cs.mixed_buckets(host, np.dtype(args.dtype))[args.bucket]
     prob, data, _ = bucket
     sides = [PortSide("cpu", "cpu", bucket, cfg)]
     if torch.cuda.is_available():
@@ -588,15 +621,19 @@ def main():
         else:
             jside = JaxSide(args.bucket, bucket, cfg)
     print(f"bucket {args.bucket} ({prob.nvar} variables, {prob.neq} "
-          f"equalities, {prob.nineq} inequalities), {args.dtype}, Ktol "
-          f"{cfg.Ktol}, sides {[s.name for s in sides]}"
+          f"equalities, {prob.nineq} inequalities), {args.dtype}, "
+          f"{args.mu_strategy}, Ktol {cfg.Ktol}, sides {[s.name for s in sides]}"
           + (" + jax" if jside else ""), flush=True)
 
     runs, walls = {}, {}
     if not args.no_bucket_runs:
         for s in sides:
             t0 = time.perf_counter()
-            res = cs.solve_bucket(prob, data, bucket[2], cfg, s.dev)
+            if args.bucket == "qp":
+                from pyipm_tpu_torch import solve_batch
+                res = solve_batch(prob, s.x0, cfg, params=s.data)
+            else:
+                res = cs.solve_bucket(prob, data, bucket[2], cfg, s.dev)
             walls[s.name] = time.perf_counter() - t0
             runs[s.name] = (res.signal.cpu().numpy(),
                             res.iter_count.cpu().numpy(), res)
@@ -604,7 +641,7 @@ def main():
             print(f"  {s.name} bucket: signals {counts(sig)}, mean "
                   f"{its.mean():.6f}, max {its.max()} iterations, "
                   f"{walls[s.name]:.1f} s", flush=True)
-        if "cuda" in runs:
+        if "cuda" in runs and args.bucket != "qp":
             try:
                 cs.card_against_cpu(args.bucket, runs["cuda"][2],
                                     runs["cpu"][2], walls["cpu"])

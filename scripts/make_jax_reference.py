@@ -14,7 +14,13 @@ kernels for float32 systems of n <= 64, run in interpret mode
 path's, and the manifest's ``pallas_interpret_reached`` says whether a
 kernel was reached).  The wide portfolios and the dense NLPs, whose TPU
 dispatch would reach Pallas kernels that no switch here turns on, take the
-JAX CPU path, and the manifest says so.  The Schur solves of phases 21-25
+JAX CPU path, and the manifest says so.  So do the float64 cells of phase
+27 (``chip_smoke.F64_CELLS``: each the float32 cell of the same name with
+``float_dtype="float64"``, drawn in float64 by ``chip_smoke.twin_arrays``):
+the JAX package's lane dispatch sends only float32 to its kernels
+(``pyipm_tpu/ops/pallas_ldlt.py:319-329``), so its CPU path is its float64
+path on any backend; their entries carry the sha256 of every input array,
+and their files the x of rows 0-127 and the named rows only.  The Schur solves of phases 21-25
 (``chip_smoke.BLOCK_CELLS``) are drawn by ``chip_smoke.draw_block`` (the
 port's numpy samplers, exact on any machine) and solved by the JAX
 package's ``make_separable_solver`` or ``make_block_solver`` on a
@@ -73,7 +79,10 @@ FAMILIES = ("portfolio", "svm", "maxent", "mpc")
 FLEET_CELLS = ("qp_adaptive", "qp_mehrotra",
                *(f"mixed_{b}" for b in FAMILIES), "mixed_box_qp",
                "wide_portfolio", "dense_condensed", "dense_ldlt",
-               "dense_lbfgs")
+               "dense_lbfgs", *cs.F64_CELLS)
+# the float64 cells keep the x of rows 0-127 and the named rows (their
+# x is twice the bytes, and jax_reference/ stays within 3 MB)
+X_ROWS_F64 = 128
 # the Schur solves of phases 21-25, one a cell (chip_smoke.BLOCK_CELLS)
 BLOCK_CELLS = tuple(cs.BLOCK_CELLS)
 CELLS = FLEET_CELLS + BLOCK_CELLS
@@ -123,6 +132,13 @@ def spec(cell):
                     config=c["config"],
                     jax_path=KERNEL if block_kernel_path(cell) else CPU,
                     jax_solver=BLOCK_SOLVERS[c["family"]])
+    if cell in cs.F64_CELLS:
+        # the JAX package's lane dispatch takes float32 only
+        # (pallas_ldlt.py:323), so its float64 path is the CPU path's on
+        # any backend
+        twin = spec(cell.removesuffix("_f64"))
+        return dict(twin, phase=27, jax_path=CPU, config=dict(
+            twin["config"], float_dtype="float64"))
     if cell.startswith("qp_"):
         mu = cell.removeprefix("qp_")
         return dict(phase=4 if mu == "adaptive" else 10, instances=cs.B,
@@ -181,25 +197,28 @@ def spec(cell):
 
 def _solver(cell):
     """``solve(rows)``: the JAX package's batched result of ``rows`` of
-    ``cell`` (a SolverResult of (len(rows), ...) arrays)."""
+    ``cell`` (a SolverResult of (len(rows), ...) arrays), on the numpy
+    instances of ``chip_smoke.twin_arrays`` (``dense_lbfgs``: phase 11's
+    draw)."""
     import jax
     import jax.numpy as jnp
 
     from pyipm_tpu import IPMConfig as JCfg
 
     sp = spec(cell)
-    if sp["config"]["float_dtype"] == "float64":
+    dt = np.dtype(sp["config"]["float_dtype"])
+    if dt == np.float64:
         jax.config.update("jax_enable_x64", True)
     cfg = JCfg(**sp["config"])
-    if cell.startswith("qp_"):
+    base = cell.removesuffix("_f64")
+    arr = cs.twin_arrays(cell) if base in cs.F64_TWINS else None
+    if base.startswith("qp_"):
         from pyipm_tpu.models.random_nlp import QPData, make_qp_batch_solver
-        from pyipm_tpu_torch.models.random_nlp import sample_qp_arrays
-        arr = sample_qp_arrays(cs.SEED, cs.B, cs.D, cs.NLIN)
-        x0 = cs.qp_x0()
+        x0 = cs.qp_x0().astype(dt)
         fn = make_qp_batch_solver(cfg, cs.D, cs.NLIN)
-        return lambda rows: fn(jnp.asarray(x0[rows]), QPData(
-            *(jnp.asarray(arr[k][rows]) for k in QPData._fields)))
-    if cell == "mixed_box_qp":
+        return (lambda rows: fn(jnp.asarray(x0[rows]), QPData(
+            *(jnp.asarray(arr[k][rows]) for k in QPData._fields))))
+    if base == "mixed_box_qp":
         from pyipm_tpu.parallel.fleet import solve_fleet
         path = os.path.join(ROOT, "examples", "heterogeneous_fleet.py")
         mod = importlib.util.spec_from_file_location("heterogeneous_fleet",
@@ -210,35 +229,36 @@ def _solver(cell):
         def solve(rows):
             res = solve_fleet(
                 [ex.box_qp(cs.BOX_D, cs.SEED + int(i)) for i in rows],
-                [np.zeros(cs.BOX_D, np.float32)] * len(rows), cfg)
+                [np.zeros(cs.BOX_D, dt)] * len(rows), cfg)
             return jax.tree.map(lambda *a: jnp.stack(a), *res)
         return solve
-    if cell.startswith("mixed_"):
-        name = cell.removeprefix("mixed_")
-        arr = fp.FAMILIES[name][0](np.dtype("float32"))
-        x0 = fp.port_x0(name, arr)
-        return lambda rows: fp.solve_jax(
-            name, {k: v[rows] for k, v in arr.items()}, x0[rows])
-    if cell == "wide_portfolio":
+    if base.startswith("mixed_"):
+        name = base.removeprefix("mixed_")
+        x0 = fp.port_x0(name, arr, dt)
+        return (lambda rows: fp.solve_jax(
+            name, {k: v[rows] for k, v in arr.items()}, x0[rows],
+            dt.name))
+    if base == "wide_portfolio":
         from pyipm_tpu.models import applications as japp
         from pyipm_tpu_torch.models import applications as app
         W = cs.WIDE_PORTFOLIO
-        arr = app.sample_portfolio_arrays(cs.SEED, W["B"], W["D"])
-        x0 = app.portfolio_x0(W["B"], W["D"], device="cpu").numpy()
+        x0 = app.portfolio_x0(W["B"], W["D"], dt, device="cpu").numpy()
         fn = japp.make_portfolio_batch_solver(cfg, W["D"])
-        return lambda rows: fn(jnp.asarray(x0[rows]), japp.PortfolioData(
-            *(jnp.asarray(arr[k][rows]) for k in japp.PortfolioData._fields)))
+        return (lambda rows: fn(jnp.asarray(x0[rows]), japp.PortfolioData(
+            *(jnp.asarray(arr[k][rows])
+              for k in japp.PortfolioData._fields))))
     from pyipm_tpu.models.random_nlp import DenseNLPData, make_dense_nlp_solver
     from pyipm_tpu_torch.models.random_nlp import sample_dense_arrays
-    dt = np.dtype(sp["config"]["float_dtype"])
-    arr = sample_dense_arrays(sp["seed"], sp["sizes"]["D"], sp["sizes"]["M"],
-                              sp["sizes"]["hidden"], dtype=dt)
+    if arr is None:
+        arr = sample_dense_arrays(sp["seed"], sp["sizes"]["D"],
+                                  sp["sizes"]["M"], sp["sizes"]["hidden"],
+                                  dtype=dt)
     x0 = np.full(sp["sizes"]["D"], 0.0 if cell == "dense_lbfgs"
                  else cs.DENSE_X0, dt)
     fn = make_dense_nlp_solver(cfg, sp["sizes"]["D"], sp["sizes"]["M"])
-    return lambda rows: jax.tree.map(lambda a: a[None], fn(
+    return (lambda rows: jax.tree.map(lambda a: a[None], fn(
         jnp.asarray(x0), DenseNLPData(
-            *(jnp.asarray(arr[k]) for k in DenseNLPData._fields))))
+            *(jnp.asarray(arr[k]) for k in DenseNLPData._fields)))))
 
 
 def _block_solver(cell):
@@ -333,8 +353,9 @@ def solve_rows(cell, rows=None):
 def x_rows(cell):
     """The rows whose x a cell's file keeps."""
     n = spec(cell)["instances"]
-    return np.unique(np.r_[np.arange(min(n, X_ROWS)),
-                           NAMED_ROWS.get(cell, ())]).astype(np.int32)
+    keep = X_ROWS_F64 if cell in cs.F64_CELLS else X_ROWS
+    return np.unique(np.r_[np.arange(min(n, keep)), NAMED_ROWS.get(
+        cell.removesuffix("_f64"), ())]).astype(np.int32)
 
 
 def run_cell(cell):
@@ -368,6 +389,8 @@ def run_cell(cell):
         if sp["instances"] == 1:
             arrays["kkt"] = out["kkt"].astype(np.float64)
         extra = dict(x_rows=_runs(xr))
+        if cell.removesuffix("_f64") in cs.F64_TWINS:
+            extra["inputs"] = cs.input_digests(cs.twin_arrays(cell))
     blob = npz_bytes(arrays)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, f"{cell}.npz"), "wb") as fh:

@@ -36,9 +36,9 @@ sys.path.insert(0, HERE)
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    F64_FLOPS, FACTOR_ONLY_SHAPE, LARGE, PATH_B, REPS, SEED, TIMED_SHAPES,
-    WIDE_SHAPES, bound, cuda_ms, device_ms, factor_bound, factor_timings,
-    library_ms, rand_sym, same_bits, solve_bound,
+    FACTOR_ONLY_SHAPE, LARGE, PATH_B, REPS, SEED, TIMED_SHAPES, WIDE_SHAPES,
+    cuda_ms, device_ms, factor_bound, factor_timings, library_ms, rand_sym,
+    same_bits, solve_bound,
 )
 
 # the sizes the solve is timed at: phase 3's, phase 16's (n = 40 to 97) and
@@ -67,9 +67,7 @@ def factor_rows(sl, dev):
     Bn, n = FACTOR_ONLY_SHAPE
     t = factor_timings(sl, rand_sym(gen, Bn, n, torch.float64, dev),
                        plain_reps=3)
-    words = n * (n + 1) // 2 + n * n + n
-    report_factor("f64", Bn, n, t, *bound(Bn * words * 8,
-                                          Bn * 2 * n ** 3 / 3, F64_FLOPS))
+    report_factor("f64", Bn, n, t, *t["factor_bound"])
 
 
 def solve_rows(sl, dev, library, outputs):

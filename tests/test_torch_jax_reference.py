@@ -12,7 +12,12 @@
 (c) the port's CPU path on rows 0-7 of every fleet cell passes
     ``chip_smoke.hold_to_jax``, the function the card's run calls;
 (d) that hold raises on a stale or missing file and on each kind of miss
-    (a signal, x, f, the mean iteration count);
+    (a signal, x, f, the mean iteration count); on a float64 cell (phase
+    27's F64_CELLS) it raises on a signal off (a classified float32 split
+    too), an iteration count off by one, x or f off by 2e-8 (1 + |.|),
+    offsets a float32 cell lets pass; the two QPs classified there
+    (``JAX_F64_SPLITS``, ROADMAP Queue 3 D5) may stop apart, and their
+    merit penalty is set by roundoff in both packages;
 (e) each Schur cell of phases 21-25 (``make_jax_reference.BLOCK_CELLS``;
     their holds in tests/test_torch_schur_reference.py) has the layout
     ``chip_smoke.hold_block_to_jax`` reads: one solve's signal, iteration
@@ -36,8 +41,9 @@ import make_jax_reference as mjr  # noqa: E402
 
 ROWS = np.arange(8)
 # the port's CPU path on eight portfolios of 500 assets takes ~1 min
-FLEETS = [pytest.param(c, marks=pytest.mark.slow) if c == "wide_portfolio"
-          else c for c in mjr.FLEET_CELLS if not c.startswith("dense_")]
+FLEETS = [pytest.param(c, marks=pytest.mark.slow)
+          if c.startswith("wide_portfolio") else c
+          for c in mjr.FLEET_CELLS if not c.startswith("dense_")]
 
 
 def _manifest():
@@ -127,39 +133,39 @@ def _port_rows(cell):
 
     cpu = torch.device("cpu")
     cfg = IPMConfig(**mjr.spec(cell)["config"])
+    dt = np.dtype(cfg.float_dtype)
+    base = cell.removesuffix("_f64")
     idx = torch.as_tensor(ROWS)
-    if cell.startswith("qp_"):
-        from pyipm_tpu_torch.models.random_nlp import (
-            make_qp_problem, qp_data, sample_qp_arrays,
-        )
-        full = sample_qp_arrays(cs.SEED, cs.B, cs.D, cs.NLIN)
+    if base.startswith("qp_"):
+        from pyipm_tpu_torch.models.random_nlp import make_qp_problem, qp_data
+        full = cs.twin_arrays(cell)
         data = qp_data({k: v[ROWS] for k, v in full.items()}, device=cpu)
         x0 = torch.as_tensor(cs.qp_x0()[ROWS])
         return solve_batch(make_qp_problem(cs.D, cs.NLIN), x0, cfg,
                            params=data)
-    if cell == "wide_portfolio":
+    if base == "wide_portfolio":
         from pyipm_tpu_torch.models import applications as app
         W = cs.WIDE_PORTFOLIO
-        data = app.portfolio_data(_portfolio_rows(W["B"], W["D"]),
+        data = app.portfolio_data(_portfolio_rows(W["B"], W["D"], dt),
                                   device=cpu)
         return solve_batch(app.make_portfolio_problem(W["D"]),
-                           app.portfolio_x0(len(ROWS), W["D"], device=cpu),
+                           app.portfolio_x0(len(ROWS), W["D"], dt, cpu),
                            cfg, params=data)
-    prob, data, x0 = cs.mixed_buckets(cpu)[cell.removeprefix("mixed_")]
+    prob, data, x0 = cs.mixed_buckets(cpu, dt)[base.removeprefix("mixed_")]
     return cs.solve_bucket(prob, take(data, idx), x0[idx], cfg, cpu)
 
 
-def _portfolio_rows(B, D):
-    """ROWS of ``sample_portfolio_arrays(SEED, B, D)``: the same draws in
-    the same order, without the (B, D, D) covariances of the other rows
-    (~20 s at phase 26's B = 1,024 and D = 500)."""
+def _portfolio_rows(B, D, dtype=np.float32):
+    """ROWS of ``sample_portfolio_arrays(SEED, B, D, dtype)``: the same
+    draws in the same order, without the (B, D, D) covariances of the other
+    rows (~20 s at phase 26's B = 1,024 and D = 500)."""
     rng = np.random.default_rng(cs.SEED)
     F = rng.standard_normal((B, D, max(D // 4, 2)))[ROWS]
     S = np.einsum("bik,bjk->bij", F, F) / D + 0.05 * np.eye(D)[None]
     m = 0.1 * rng.standard_normal((B, D))[ROWS]
     gamma = 0.5 + np.abs(rng.standard_normal(B))[ROWS]
     arr = dict(S=S, m=m, gamma=gamma, cap=np.full((len(ROWS), D), 4.0 / D))
-    return {k: v.astype(np.float32) for k, v in arr.items()}
+    return {k: v.astype(dtype) for k, v in arr.items()}
 
 
 def test_portfolio_rows_are_the_samplers():
@@ -211,3 +217,123 @@ def test_hold_raises_on_each_miss(miss):
         got["iters"] += 1
     with pytest.raises(AssertionError):
         cs.hold_to_jax("qp_adaptive", rows=rows, **got)
+
+
+@pytest.mark.parametrize("cell", cs.F64_CELLS)
+def test_f64_cell_is_its_twin_in_float64(cell):
+    """Each float64 cell is the float32 cell of the same name drawn and
+    solved in float64 along the JAX package's CPU path, its inputs' sha256s
+    those of ``chip_smoke.twin_arrays`` (the wide draw's keys only: it
+    takes ~20 s)."""
+    entry, ref = cs.jax_reference(cell)
+    twin = mjr.spec(cell.removesuffix("_f64"))
+    assert {k: v for k, v in mjr.spec(cell).items()
+            if k not in ("phase", "config", "jax_path")} == {
+        k: v for k, v in twin.items()
+        if k not in ("phase", "config", "jax_path")}
+    assert entry["config"] == dict(twin["config"], float_dtype="float64")
+    assert (entry["phase"], entry["jax_path"], entry["dtype"]) == (
+        27, mjr.CPU, "float64")
+    assert entry["pallas_interpret_reached"] is False
+    assert ref["x"].dtype == np.float64
+    assert ref["x_rows"].size <= mjr.X_ROWS_F64 + len(
+        mjr.NAMED_ROWS.get(cell.removesuffix("_f64"), ()))
+    if cell.startswith("wide_"):
+        assert sorted(entry["inputs"]) == ["S", "cap", "gamma", "m"]
+    else:
+        assert cs.input_digests(cs.twin_arrays(cell)) == entry["inputs"]
+
+
+@pytest.mark.parametrize("cell", ["mixed_maxent", "mixed_maxent_f64"])
+@pytest.mark.parametrize("miss", ["signal", "iters", "x", "f"])
+def test_f64_hold_raises_where_the_f32_hold_passes(cell, miss):
+    """The same offsets on the reference's own kept rows: the float32 hold
+    lets them pass (maximum entropy 1415 is a classified split there), the
+    float64 hold raises on each."""
+    _, ref = cs.jax_reference(cell)
+    rows = ref["x_rows"]
+    got = dict(signal=ref["signal"][rows].copy(),
+               iters=ref["iter_count"][rows].astype(np.int64),
+               f=ref["f"][rows].copy(), x=ref["x"].astype(np.float64))
+    out = cs.hold_to_jax(cell, rows=rows, **got)
+    assert out["max_rel_dx"] == out["max_rel_df"] == 0.0
+    k = int(np.flatnonzero(rows == 1415)[0]) if miss == "signal" else 5
+    if miss == "signal":
+        got["signal"][k] = -2
+    elif miss == "iters":
+        got["iters"][k] += 1
+    elif miss == "x":
+        got["x"][k, 0] += 2e-8 * (1 + abs(got["x"][k, 0]))
+    else:
+        got["f"][k] += 2e-8 * (1 + abs(got["f"][k]))
+    if cell.endswith("_f64"):
+        with pytest.raises(AssertionError):
+            cs.hold_to_jax(cell, rows=rows, **got)
+    else:
+        cs.hold_to_jax(cell, rows=rows, **got)
+
+
+def test_f64_hold_lets_only_a_classified_instance_stop_apart():
+    """D5's instances of ``qp_mehrotra_f64`` may take another iteration
+    count, their f held within JAX_FTOL; the same offsets on a neighbour
+    raise."""
+    cell = "qp_mehrotra_f64"
+    _, ref = cs.jax_reference(cell)
+    x = np.zeros((ref["signal"].size, cs.D))
+    x[ref["x_rows"]] = ref["x"]
+    for i in cs.JAX_F64_SPLITS[cell]:
+        for k in (i, i - 1):
+            iters = ref["iter_count"].astype(np.int64)
+            f = ref["f"].copy()
+            iters[k] += 1
+            f[k] += 1e-6 * (1 + abs(f[k]))
+            got = dict(signal=ref["signal"], iters=iters, f=f, x=x)
+            if k == i:
+                assert cs.hold_to_jax(cell, **got)["iters_differ"] == [k]
+            else:
+                with pytest.raises(AssertionError):
+                    cs.hold_to_jax(cell, **got)
+
+
+def test_qp_mehrotra_f64_splits_follow_a_roundoff_penalty():
+    """D5 on the CPU: QPs 8248 and 8760 of the float64 'mehrotra' fleet,
+    each solved alone by the port and by the JAX package, both converge,
+    with a merit penalty nu past 1e11 on both sides (a positive barrier
+    slope over an l1 infeasibility of ~1e-15) that differs between them,
+    f within JAX_FTOL; their neighbours keep nu at its initial 10 and
+    agree within JAX_F64_TOL."""
+    import jax
+    import jax.numpy as jnp
+
+    from pyipm_tpu import IPMConfig as JCfg
+    from pyipm_tpu.models.random_nlp import QPData, make_qp_batch_solver
+    from pyipm_tpu_torch import IPMConfig, solve_batch
+    from pyipm_tpu_torch.models.random_nlp import make_qp_problem, qp_data
+
+    cell = "qp_mehrotra_f64"
+    jax.config.update("jax_enable_x64", True)
+    arr = cs.twin_arrays(cell)
+    x0 = cs.qp_x0().astype(np.float64)
+    cfg = dict(verbosity=0, Ktol=1e-4, mu_strategy="mehrotra")
+    jfn = make_qp_batch_solver(JCfg(float_dtype="float64", **cfg), cs.D,
+                               cs.NLIN)
+    problem = make_qp_problem(cs.D, cs.NLIN)
+    for i in cs.JAX_F64_SPLITS[cell]:
+        for k, split in ((i, True), (i - 1, False)):
+            rows = {f: v[k:k + 1] for f, v in arr.items()}
+            port = solve_batch(problem, torch.as_tensor(x0[k:k + 1]),
+                               IPMConfig(**cfg), params=qp_data(
+                                   rows, device="cpu"))
+            jres = jfn(jnp.asarray(x0[k:k + 1]), QPData(
+                *(jnp.asarray(rows[f]) for f in QPData._fields)))
+            assert int(port.signal[0]) == int(jres.signal[0]) == 1
+            nu_p, nu_j = float(port.nu[0]), float(jres.nu[0])
+            df = abs(float(port.fval[0]) - float(jres.fval[0])) / (
+                1 + abs(float(jres.fval[0])))
+            if split:
+                assert min(nu_p, nu_j) > 1e11 and nu_p != nu_j, (nu_p, nu_j)
+                assert df <= cs.JAX_FTOL
+            else:
+                assert nu_p == nu_j == 10.0
+                assert int(port.iter_count[0]) == int(jres.iter_count[0])
+                assert df <= cs.JAX_F64_TOL

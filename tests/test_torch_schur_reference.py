@@ -252,7 +252,7 @@ def test_block_hold_passes_the_reference_and_raises_on_each_miss(cell,
                                                                   miss):
     res, digests = _ref_result(cell)
     f64 = cs.BLOCK_CELLS[cell]["config"]["float_dtype"] == "float64"
-    step = 2 * (cs.BLOCK_F64_TOL if f64 else cs.STOP_APART_XTOL)
+    step = 2 * (cs.JAX_F64_TOL if f64 else cs.STOP_APART_XTOL)
     if miss is None:
         out = cs.hold_block_to_jax(cell, digests, res)
         assert out["max_rel_dx"] == out["max_rel_dlc"] == out["rel_df"] == 0
