@@ -1,0 +1,11 @@
+"""Device: the share of the traced window in which no kernel, copy or
+set ran on the card."""
+
+UNIT = "%"
+
+
+def read(ctx):
+    tr = ctx.window.trace
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)

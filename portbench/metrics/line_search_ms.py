@@ -1,0 +1,17 @@
+"""Line search (``core/linesearch.search`` and its second-order
+correction): device busy ms a solve call inside the program's scopes
+``ipm-line-search``. A traced run times each scope with a pair of CUDA
+events and places it on the profiler's timeline
+(``tracing.align_spans``); the busy time is that of the kernels, copies
+and sets inside."""
+
+SCOPES = ('ipm-line-search',)
+UNIT = "ms"
+
+
+def read(ctx):
+    tr = ctx.window.trace
+    if tr is None or not ctx.window.aligned:
+        return None
+    busy = tr.busy_in(set(SCOPES))
+    return 1e3 * busy / len(ctx.window.walls) if busy > 0 else None
