@@ -17,6 +17,7 @@ from pyipm_tpu_torch import _sync
 from pyipm_tpu_torch.core import kkt as K
 from pyipm_tpu_torch.core.problem import Problem
 from pyipm_tpu_torch.ops.linalg import lstsq_minnorm
+from pyipm_tpu_torch.utils import profiling
 
 
 def take(p, ids):
@@ -186,41 +187,43 @@ def search(problem: Problem, cfg, x0, s0, lda0, dz, alpha_smax, alpha_lmax,
 
     def try_soc(ids):
         """Second-order feasibility correction at a_s_max, applied where
-        infeasibility went up (pyipm.py:1464-1489, 1516-1536).  Returns
-        (accepted, (dz_p, a_corr)) for instances ``ids``."""
-        n = ids.numel()
-        accepted = torch.zeros((n,), dtype=torch.bool, device=x0.device)
-        dz_p = x0.new_zeros((n, D + N))
-        a_corr = x0.new_ones((n,))
-        pf = take(p, ids)
-        am = alpha_smax[ids, None]
-        xa = x0[ids] + am * dx[ids]
-        sa = s0[ids] + am * ds[ids]
-        c_old = K.con(problem, x0[ids], s0[ids], pf)
-        c_new = K.con(problem, xa, sa, pf)
-        up = (torch.sum(torch.abs(c_new), dim=-1)
-              > torch.sum(torch.abs(c_old), dim=-1))
-        loc = _sync.indices(up)
-        if loc.numel() == 0:
+        infeasibility went up (pyipm.py:1464-1489, 1516-1536), in the
+        profiling scope ``ipm-soc``.  Returns (accepted, (dz_p, a_corr))
+        for instances ``ids``."""
+        with profiling.annotate("ipm-soc", x0.device):
+            n = ids.numel()
+            accepted = torch.zeros((n,), dtype=torch.bool, device=x0.device)
+            dz_p = x0.new_zeros((n, D + N))
+            a_corr = x0.new_ones((n,))
+            pf = take(p, ids)
+            am = alpha_smax[ids, None]
+            xa = x0[ids] + am * dx[ids]
+            sa = s0[ids] + am * ds[ids]
+            c_old = K.con(problem, x0[ids], s0[ids], pf)
+            c_new = K.con(problem, xa, sa, pf)
+            up = (torch.sum(torch.abs(c_new), dim=-1)
+                  > torch.sum(torch.abs(c_old), dim=-1))
+            loc = _sync.indices(up)
+            if loc.numel() == 0:
+                return accepted, (dz_p, a_corr)
+            g = ids[loc]
+            pg = take(p, g)
+            A = K.jaco(problem, x0[g], pg).transpose(1, 2)       # (M+N, D+N)
+            dzp = -lstsq_minnorm(A, c_new[loc])
+            rhs = armijo_rhs(g, alpha_smax[g])
+            ok = K.phi(problem, xa[loc] + dzp[:, :D], sa[loc] + dzp[:, D:],
+                       mu[g], nu[g], pg) <= rhs
+            if N:
+                step_x = alpha_smax[g, None] * dx[g] + dzp[:, :D]
+                step_s = alpha_smax[g, None] * ds[g] + dzp[:, D:]
+                ac = max_step_ftb(s0[g], step_s, tau)
+                ok = ok & (K.phi(problem, x0[g] + ac[:, None] * step_x,
+                                 s0[g] + ac[:, None] * step_s, mu[g], nu[g],
+                                 pg) <= rhs)
+                a_corr[loc] = ac
+            accepted[loc] = ok
+            dz_p[loc] = dzp
             return accepted, (dz_p, a_corr)
-        g = ids[loc]
-        pg = take(p, g)
-        A = K.jaco(problem, x0[g], pg).transpose(1, 2)       # (M+N, D+N)
-        dzp = -lstsq_minnorm(A, c_new[loc])
-        rhs = armijo_rhs(g, alpha_smax[g])
-        ok = K.phi(problem, xa[loc] + dzp[:, :D], sa[loc] + dzp[:, D:],
-                   mu[g], nu[g], pg) <= rhs
-        if N:
-            step_x = alpha_smax[g, None] * dx[g] + dzp[:, :D]
-            step_s = alpha_smax[g, None] * ds[g] + dzp[:, D:]
-            ac = max_step_ftb(s0[g], step_s, tau)
-            ok = ok & (K.phi(problem, x0[g] + ac[:, None] * step_x,
-                             s0[g] + ac[:, None] * step_s, mu[g], nu[g],
-                             pg) <= rhs)
-            a_corr[loc] = ac
-        accepted[loc] = ok
-        dz_p[loc] = dzp
-        return accepted, (dz_p, a_corr)
 
     a_s, a_l, soc, aborted, (dz_p, a_corr) = merit_line_search(
         phi_at, armijo_rhs, base_of, alpha_smax, alpha_lmax,

@@ -7,6 +7,9 @@ tensors, ``()`` when the problem has none.  Every method here is batch
 first: ``x`` is (B, D) and every tensor of ``p`` has a leading B axis; the
 per-instance callables are mapped over the batch with ``torch.func.vmap``
 and differentiated with ``torch.func.grad`` / ``jacfwd`` / ``hessian``.
+Each batched derivative runs in a profiling scope: ``ipm-jacobian`` for
+``grad_f``, ``jac_ce`` and ``jac_ci``, ``ipm-hessian`` for
+``hess_lagrangian``.
 
 Derivative overrides follow the reference's conventions (pyipm.py:223-225):
 
@@ -25,6 +28,8 @@ from typing import Callable, Optional
 
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
+
+from pyipm_tpu_torch.utils import profiling
 
 
 # ``vmap(hessian(f))`` (forward over ``jacrev``, the JAX package's
@@ -119,30 +124,33 @@ class Problem:
     # ------------------------------------------------------------------
     # first derivatives (user override or autodiff, pyipm.py:473-509)
     def grad_f(self, x, p):
-        if self.df is not None:
-            return vmap(lambda x_, p_: torch.reshape(
-                self.df(x_, p_), (self.nvar,)))(x, p)
-        return vmap(grad(self._f1))(x, p)
+        with profiling.annotate("ipm-jacobian", x.device):
+            if self.df is not None:
+                return vmap(lambda x_, p_: torch.reshape(
+                    self.df(x_, p_), (self.nvar,)))(x, p)
+            return vmap(grad(self._f1))(x, p)
 
     def jac_ce(self, x, p):
         """TRANSPOSED equality Jacobian, (B, D, M), in x's dtype (forward
         mode of a 0-dim result minus a Python float comes out float64 for
         float32 x)."""
-        if self.dce is not None:
-            J = vmap(lambda x_, p_: torch.reshape(
-                self.dce(x_, p_), (self.nvar, self.neq)))(x, p)
-        else:
-            J = vmap(jacfwd(self._ce1))(x, p).transpose(1, 2)
-        return J.to(x.dtype)
+        with profiling.annotate("ipm-jacobian", x.device):
+            if self.dce is not None:
+                J = vmap(lambda x_, p_: torch.reshape(
+                    self.dce(x_, p_), (self.nvar, self.neq)))(x, p)
+            else:
+                J = vmap(jacfwd(self._ce1))(x, p).transpose(1, 2)
+            return J.to(x.dtype)
 
     def jac_ci(self, x, p):
         """TRANSPOSED inequality Jacobian, (B, D, N), in x's dtype."""
-        if self.dci is not None:
-            J = vmap(lambda x_, p_: torch.reshape(
-                self.dci(x_, p_), (self.nvar, self.nineq)))(x, p)
-        else:
-            J = vmap(jacfwd(self._ci1))(x, p).transpose(1, 2)
-        return J.to(x.dtype)
+        with profiling.annotate("ipm-jacobian", x.device):
+            if self.dci is not None:
+                J = vmap(lambda x_, p_: torch.reshape(
+                    self.dci(x_, p_), (self.nvar, self.nineq)))(x, p)
+            else:
+                J = vmap(jacfwd(self._ci1))(x, p).transpose(1, 2)
+            return J.to(x.dtype)
 
     # ------------------------------------------------------------------
     # second derivatives
@@ -179,12 +187,13 @@ class Problem:
 
     def hess_lagrangian(self, x, lda, p):
         """d2L = d2f - d2ce - d2ci (reference pyipm.py:40, 816-821)."""
-        H = self.hess_f(x, p)
-        if self.neq:
-            H = H - self.hess_ce(x, lda, p)
-        if self.nineq:
-            H = H - self.hess_ci(x, lda, p)
-        return H
+        with profiling.annotate("ipm-hessian", x.device):
+            H = self.hess_f(x, p)
+            if self.neq:
+                H = H - self.hess_ce(x, lda, p)
+            if self.nineq:
+                H = H - self.hess_ci(x, lda, p)
+            return H
 
 
 def make_problem(f: Callable, nvar: int, ce: Optional[Callable] = None,

@@ -147,15 +147,25 @@ def _put(st: SolverState, ids, sub: SolverState) -> SolverState:
     return _tree(lambda t, u: t.index_copy(0, ids, u), st, sub)
 
 
-def _phase(fn):
+def _phase(name: str):
     """Run a solver phase without autograd, at the configured matmul
     precision (the JAX package's ``_prec``, solver.py:548-560), so that a
-    budgeted or resumed run computes what a straight solve does."""
-    @functools.wraps(fn)
-    def wrapped(self, *a, **kw):
-        with torch.no_grad(), matmul_precision(self.config.matmul_precision):
-            return fn(self, *a, **kw)
-    return wrapped
+    budgeted or resumed run computes what a straight solve does, in the
+    profiling scope ``name`` on the solver's device, or where the solver
+    has none, the device of its first argument (a state, or the start
+    x0)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(self, first, *a, **kw):
+            dev = getattr(self, "device", None)
+            if dev is None:
+                dev = getattr(getattr(first, "x", first), "device", None)
+            with torch.no_grad(), \
+                    matmul_precision(self.config.matmul_precision), \
+                    profiling.annotate(name, dev):
+                return fn(self, first, *a, **kw)
+        return wrapped
+    return deco
 
 
 def _empty_history(x, T: int) -> MetricsHistory:
@@ -287,7 +297,7 @@ class LoopEngine:
         with profiling.annotate("ipm-outer-epilogue", st.x.device):
             return self.outer_epilogue(st, done, p)
 
-    @_phase
+    @_phase("ipm-loop")
     def _loop(self, st: SolverState, p, limit=None) -> SolverState:
         """Flat steps until no instance runs; with ``limit`` (B,) an
         instance also stops once its ``iter_count`` reaches it."""
@@ -505,7 +515,7 @@ class BatchSolver(LoopEngine):
         return MetricsHistory(sub.kkt, sub.mu, sub.nu, sub.alpha, sub.delta)
 
     # ------------------------------------------------------------------
-    @_phase
+    @_phase("ipm-init")
     def init_state(self, x0, p=(), s0=None, lda0=None, mu0=None,
                    nu0=None) -> SolverState:
         """Initialization (reference pyipm.py:1596-1651).
@@ -566,7 +576,7 @@ class BatchSolver(LoopEngine):
             outer=i32(), inner=i32(), inner_done=no(), in_inner=no(),
             f_past=f_past, alpha=full(0.0), reg_retries=i32(), **extra)
 
-    @_phase
+    @_phase("ipm-finalize")
     def finalize(self, st: SolverState, p=()) -> SolverResult:
         return SolverResult(
             x=st.x, s=st.s, lda=st.lda, fval=self.problem.f_val(st.x, p),

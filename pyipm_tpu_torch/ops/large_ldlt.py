@@ -15,7 +15,9 @@
     (pallas_ldlt.py:386-670).
 
 The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
-kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
+kernel (or raises), a CPU tensor takes the plain version.  Each runs whole
+in a profiling scope (``ipm-k3-panel``, ``ipm-k4-sweep-panels``,
+``ipm-k5-sweep-blocks``).  ``LAUNCHES``
 counts kernel launches per wrapper, and ``LAUNCHES_BY_B`` the panel
 kernel's launches by (kernel, number of panels); nothing else adds to
 them.  Each sweep is
@@ -33,6 +35,7 @@ import functools
 import torch
 
 from pyipm_tpu_torch.ops import _build
+from pyipm_tpu_torch.utils import profiling
 
 MAX_PANEL = 128
 SWEEP_MAX_W = 4096
@@ -105,28 +108,29 @@ def panel_ldlt(A):
     """(n, n) -> (L, d), or a batch (B, n, n) -> (L (B, n, n), d (B, n)) in
     one launch, n <= 128.  CUDA: the hand-written kernel, the variant by
     :func:`panels_per_sm`; CPU: plain."""
-    if A.dim() not in (2, 3) or A.shape[-1] != A.shape[-2]:
-        raise ValueError(f"A must be (n, n) or (B, n, n), got "
-                         f"{tuple(A.shape)}")
-    n = A.shape[-1]
-    B = A.shape[0] if A.dim() == 3 else 1
-    if not 0 < n <= MAX_PANEL:
-        raise ValueError(f"panel size {n} not in 1..{MAX_PANEL}")
-    _build.check_operand("A", A, A.shape, A.dtype, A.device)
-    if A.device.type == "cpu":
-        return panel_ldlt_ref(A)
-    if A.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {A.device}")
-    L = torch.empty_like(A)
-    d = A.new_empty(A.shape[:-1])
-    if B == 0:
+    with profiling.annotate("ipm-k3-panel", A.device):
+        if A.dim() not in (2, 3) or A.shape[-1] != A.shape[-2]:
+            raise ValueError(f"A must be (n, n) or (B, n, n), got "
+                             f"{tuple(A.shape)}")
+        n = A.shape[-1]
+        B = A.shape[0] if A.dim() == 3 else 1
+        if not 0 < n <= MAX_PANEL:
+            raise ValueError(f"panel size {n} not in 1..{MAX_PANEL}")
+        _build.check_operand("A", A, A.shape, A.dtype, A.device)
+        if A.device.type == "cpu":
+            return panel_ldlt_ref(A)
+        if A.device.type != "cuda":
+            raise RuntimeError(f"no kernel for device {A.device}")
+        L = torch.empty_like(A)
+        d = A.new_empty(A.shape[:-1])
+        if B == 0:
+            return L, d
+        per_sm = panels_per_sm(B, sm_count(A.device), A.dtype)
+        _build.launch("pyipm_panel_ldlt", "panel_ldlt", A.dtype, A.device,
+                      A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B, per_sm)
+        LAUNCHES["panel_ldlt"] += 1
+        LAUNCHES_BY_B["panel_ldlt", B] += 1
         return L, d
-    per_sm = panels_per_sm(B, sm_count(A.device), A.dtype)
-    _build.launch("pyipm_panel_ldlt", "panel_ldlt", A.dtype, A.device,
-                  A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B, per_sm)
-    LAUNCHES["panel_ldlt"] += 1
-    LAUNCHES_BY_B["panel_ldlt", B] += 1
-    return L, d
 
 
 def _check_sweep(name, Lp, z, inv, max_w):
@@ -174,21 +178,22 @@ def bwd_sweep_panels(Lp, z, invp):
     diagonal-scaled forward-substituted z (npad,) and the 128-panel
     inverses invp (npad/128, 128, 128).  CUDA: the hand-written one-launch
     sweep; CPU: plain."""
-    name = "bwd_sweep_panels"
-    npad, _, w = _check_sweep(name, Lp, z, invp, MAX_PANEL)
-    if w != MAX_PANEL:
-        raise ValueError(f"{name}: the inverses must be {MAX_PANEL}-wide "
-                         f"panels, got w = {w}")
-    if Lp.device.type == "cpu":
-        return bwd_sweep_ref(Lp, z, invp)
-    _check_aligned(name, Lp=Lp, invp=invp)
-    x = torch.empty_like(z)
-    ready = panel_sweep_flags(npad, Lp.device)
-    _build.launch("pyipm_bwd_sweep_panels", name, Lp.dtype, Lp.device,
-                  Lp.data_ptr(), z.data_ptr(), invp.data_ptr(), x.data_ptr(),
-                  ready.data_ptr(), npad)
-    LAUNCHES[name] += 1
-    return x
+    with profiling.annotate("ipm-k4-sweep-panels", Lp.device):
+        name = "bwd_sweep_panels"
+        npad, _, w = _check_sweep(name, Lp, z, invp, MAX_PANEL)
+        if w != MAX_PANEL:
+            raise ValueError(f"{name}: the inverses must be "
+                             f"{MAX_PANEL}-wide panels, got w = {w}")
+        if Lp.device.type == "cpu":
+            return bwd_sweep_ref(Lp, z, invp)
+        _check_aligned(name, Lp=Lp, invp=invp)
+        x = torch.empty_like(z)
+        ready = panel_sweep_flags(npad, Lp.device)
+        _build.launch("pyipm_bwd_sweep_panels", name, Lp.dtype, Lp.device,
+                      Lp.data_ptr(), z.data_ptr(), invp.data_ptr(),
+                      x.data_ptr(), ready.data_ptr(), npad)
+        LAUNCHES[name] += 1
+        return x
 
 
 def blocks_sweep_scratch(npad: int, w: int, dtype, device):
@@ -213,15 +218,18 @@ def bwd_sweep_blocks(Lp, z, invb):
     """The same x from the superblock inverses invb (npad/w, w, w).  CUDA:
     the hand-written one-launch sweep (w a multiple of 128, else it
     raises); CPU: plain."""
-    name = "bwd_sweep_blocks"
-    npad, _, w = _check_sweep(name, Lp, z, invb, SWEEP_MAX_W)
-    if Lp.device.type == "cpu":
-        return bwd_sweep_ref(Lp, z, invb)
-    _check_aligned(name, Lp=Lp, invb=invb)
-    counts, partials = blocks_sweep_scratch(npad, w, Lp.dtype, Lp.device)
-    x = torch.empty_like(z)
-    _build.launch("pyipm_bwd_sweep_blocks", name, Lp.dtype, Lp.device,
-                  Lp.data_ptr(), z.data_ptr(), invb.data_ptr(), x.data_ptr(),
-                  partials.data_ptr(), counts.data_ptr(), npad, w)
-    LAUNCHES[name] += 1
-    return x
+    with profiling.annotate("ipm-k5-sweep-blocks", Lp.device):
+        name = "bwd_sweep_blocks"
+        npad, _, w = _check_sweep(name, Lp, z, invb, SWEEP_MAX_W)
+        if Lp.device.type == "cpu":
+            return bwd_sweep_ref(Lp, z, invb)
+        _check_aligned(name, Lp=Lp, invb=invb)
+        counts, partials = blocks_sweep_scratch(npad, w, Lp.dtype,
+                                                Lp.device)
+        x = torch.empty_like(z)
+        _build.launch("pyipm_bwd_sweep_blocks", name, Lp.dtype, Lp.device,
+                      Lp.data_ptr(), z.data_ptr(), invb.data_ptr(),
+                      x.data_ptr(), partials.data_ptr(), counts.data_ptr(),
+                      npad, w)
+        LAUNCHES[name] += 1
+        return x

@@ -15,7 +15,8 @@ factor's strict lower triangle, packed, and waits for no other warp
 (:func:`solve_residency` gives that launch's shape on a card).
 
 The wrappers dispatch on where the tensor lies: a CUDA tensor launches the
-kernel (or raises), a CPU tensor takes the plain version.  ``LAUNCHES``
+kernel (or raises), a CPU tensor takes the plain version.  Each runs whole
+in a profiling scope (``ipm-k1-factor``, ``ipm-k2-solve``).  ``LAUNCHES``
 counts kernel launches per kernel, and ``LAUNCHES_BY_N`` the same launches
 by (kernel, n); nothing else adds to them.
 """
@@ -27,6 +28,7 @@ import collections
 import torch
 
 from pyipm_tpu_torch.ops import _build
+from pyipm_tpu_torch.utils import profiling
 
 MAX_N = 128
 LAUNCHES = {"factor": 0, "solve": 0}
@@ -74,25 +76,27 @@ def ldlt_solve_small_ref(L, d, b, scale=None):
 # ----------------------------------------------------------------------
 def ldlt_factor_small(A):
     """(B, n, n) -> (L, d).  CUDA: the hand-written kernel; CPU: plain."""
-    if A.dim() != 3 or A.shape[1] != A.shape[2]:
-        raise ValueError(f"A must be (B, n, n), got {tuple(A.shape)}")
-    B, n, _ = A.shape
-    if n > MAX_N:
-        raise ValueError(f"n = {n} > {MAX_N}: not a small system")
-    _build.check_operand("A", A, (B, n, n), A.dtype, A.device)
-    if A.device.type == "cpu":
-        return ldlt_factor_small_ref(A)
-    if A.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {A.device}")
-    L = torch.empty_like(A)
-    d = A.new_empty((B, n))
-    if B == 0:
+    with profiling.annotate("ipm-k1-factor", A.device):
+        if A.dim() != 3 or A.shape[1] != A.shape[2]:
+            raise ValueError(f"A must be (B, n, n), got {tuple(A.shape)}")
+        B, n, _ = A.shape
+        if n > MAX_N:
+            raise ValueError(f"n = {n} > {MAX_N}: not a small system")
+        _build.check_operand("A", A, (B, n, n), A.dtype, A.device)
+        if A.device.type == "cpu":
+            return ldlt_factor_small_ref(A)
+        if A.device.type != "cuda":
+            raise RuntimeError(f"no kernel for device {A.device}")
+        L = torch.empty_like(A)
+        d = A.new_empty((B, n))
+        if B == 0:
+            return L, d
+        _build.launch("pyipm_ldlt_factor", "ldlt_factor_small", A.dtype,
+                      A.device, A.data_ptr(), L.data_ptr(), d.data_ptr(), B,
+                      n)
+        LAUNCHES["factor"] += 1
+        LAUNCHES_BY_N["factor", n] += 1
         return L, d
-    _build.launch("pyipm_ldlt_factor", "ldlt_factor_small", A.dtype,
-                  A.device, A.data_ptr(), L.data_ptr(), d.data_ptr(), B, n)
-    LAUNCHES["factor"] += 1
-    LAUNCHES_BY_N["factor", n] += 1
-    return L, d
 
 
 def solve_residency(n: int, dtype, device):
@@ -107,27 +111,28 @@ def ldlt_solve_small(L, d, b, scale=None):
     """(B, n, n), (B, n), (B, n) -> x (B, n); with a row scale ``scale``
     (B, n), scale * solve(scale * b) in the same launch.  CUDA: the
     hand-written kernel; CPU: plain."""
-    if L.dim() != 3 or L.shape[1] != L.shape[2]:
-        raise ValueError(f"L must be (B, n, n), got {tuple(L.shape)}")
-    B, n, _ = L.shape
-    if n > MAX_N:
-        raise ValueError(f"n = {n} > {MAX_N}: not a small system")
-    _build.check_operand("L", L, (B, n, n), L.dtype, L.device)
-    _build.check_operand("d", d, (B, n), L.dtype, L.device)
-    _build.check_operand("b", b, (B, n), L.dtype, L.device)
-    if scale is not None:
-        _build.check_operand("scale", scale, (B, n), L.dtype, L.device)
-    if L.device.type == "cpu":
-        return ldlt_solve_small_ref(L, d, b, scale)
-    if L.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {L.device}")
-    x = torch.empty_like(b)
-    if B == 0:
+    with profiling.annotate("ipm-k2-solve", L.device):
+        if L.dim() != 3 or L.shape[1] != L.shape[2]:
+            raise ValueError(f"L must be (B, n, n), got {tuple(L.shape)}")
+        B, n, _ = L.shape
+        if n > MAX_N:
+            raise ValueError(f"n = {n} > {MAX_N}: not a small system")
+        _build.check_operand("L", L, (B, n, n), L.dtype, L.device)
+        _build.check_operand("d", d, (B, n), L.dtype, L.device)
+        _build.check_operand("b", b, (B, n), L.dtype, L.device)
+        if scale is not None:
+            _build.check_operand("scale", scale, (B, n), L.dtype, L.device)
+        if L.device.type == "cpu":
+            return ldlt_solve_small_ref(L, d, b, scale)
+        if L.device.type != "cuda":
+            raise RuntimeError(f"no kernel for device {L.device}")
+        x = torch.empty_like(b)
+        if B == 0:
+            return x
+        _build.launch("pyipm_ldlt_solve", "ldlt_solve_small", L.dtype,
+                      L.device, L.data_ptr(), d.data_ptr(), b.data_ptr(),
+                      None if scale is None else scale.data_ptr(),
+                      x.data_ptr(), B, n)
+        LAUNCHES["solve"] += 1
+        LAUNCHES_BY_N["solve", n] += 1
         return x
-    _build.launch("pyipm_ldlt_solve", "ldlt_solve_small", L.dtype,
-                  L.device, L.data_ptr(), d.data_ptr(), b.data_ptr(),
-                  None if scale is None else scale.data_ptr(),
-                  x.data_ptr(), B, n)
-    LAUNCHES["solve"] += 1
-    LAUNCHES_BY_N["solve", n] += 1
-    return x

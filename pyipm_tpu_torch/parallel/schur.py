@@ -1464,7 +1464,7 @@ class BlockSolver(LoopEngine):
         return st
 
     # --- surfaces -----------------------------------------------------
-    @_phase
+    @_phase("ipm-init")
     def init_state(self, x0, theta, ccdata=None, s0=None, le0=None,
                    li0=None, lc0=None, lci0=None) -> SolverState:
         """This rank's initial state (JAX schur.py:1737-1847): ``x0``
@@ -1568,7 +1568,7 @@ class BlockSolver(LoopEngine):
         """Run the solve to its end."""
         return self._loop(state, self.local_data(theta, ccdata))
 
-    @_phase
+    @_phase("ipm-finalize")
     def finalize(self, state: SolverState, theta,
                  ccdata=None) -> BlockResult:
         """The result, every rank's blocks gathered (K, ...) on every

@@ -2,10 +2,15 @@
 ``pyipm_tpu/utils/profiling.py``).
 
   - :func:`annotate` -- a named scope: a ``torch.profiler`` range, and an
-    NVTX range when the work is on the card.  The solver labels its phases
-    with six of them (``ipm-direction``, ``ipm-line-search``,
-    ``ipm-kkt-residual``, ``ipm-outer-epilogue``, and inside
-    ``reg_solve_kkt`` ``ipm-kkt-factor`` and ``ipm-kkt-solve``);
+    NVTX range when the work is on the card.  :data:`SCOPES` lists every
+    scope of the package: the solver's phases (``ipm-init``, ``ipm-loop``,
+    ``ipm-finalize``; inside the loop ``ipm-direction``,
+    ``ipm-line-search`` with its ``ipm-soc``, ``ipm-kkt-residual``,
+    ``ipm-outer-epilogue``), the derivatives (``ipm-hessian``,
+    ``ipm-jacobian``), ``reg_solve_kkt``'s ``ipm-kkt-factor`` and
+    ``ipm-kkt-solve``, and each kernel wrapper, checks and launch
+    included (``ipm-k1-factor``, ``ipm-k2-solve``, ``ipm-k3-panel``,
+    ``ipm-k4-sweep-panels``, ``ipm-k5-sweep-blocks``);
   - :func:`trace` -- ``torch.profiler`` around a block, CPU and (on the
     card) CUDA activities, exported as a Chrome/Perfetto trace;
   - :func:`profile_solve` -- first-call wall and median steady wall of a
@@ -29,9 +34,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-# the six scope names the solver's phases carry
+# every scope name the package's code opens with :func:`annotate`
 SCOPES = ("ipm-direction", "ipm-line-search", "ipm-kkt-residual",
-          "ipm-outer-epilogue", "ipm-kkt-factor", "ipm-kkt-solve")
+          "ipm-outer-epilogue", "ipm-kkt-factor", "ipm-kkt-solve",
+          "ipm-init", "ipm-loop", "ipm-finalize", "ipm-hessian",
+          "ipm-jacobian", "ipm-soc", "ipm-k1-factor", "ipm-k2-solve",
+          "ipm-k3-panel", "ipm-k4-sweep-panels", "ipm-k5-sweep-blocks")
+# the scopes of SCOPES that a K <= 128 solve taking no second-order
+# correction (the QP fleet, reference problem 7) does not open
+NOT_IN_SMALL_SOLVE = ("ipm-soc", "ipm-k3-panel", "ipm-k4-sweep-panels",
+                      "ipm-k5-sweep-blocks")
 
 _nan_debug = False
 
@@ -87,16 +99,13 @@ def trace(logdir: str):
 # ----------------------------------------------------------------------
 @dataclasses.dataclass
 class SolveProfile:
-    """Structured result of :func:`profile_solve`.  ``flops`` and
-    ``hbm_bytes`` (XLA cost analysis in the JAX package) have no source
-    here and stay None; the JAX package's rates derived from them
-    (``gflops_per_s``, ``arithmetic_intensity``) are left out."""
+    """Structured result of :func:`profile_solve`.  The JAX package's
+    ``flops`` and ``hbm_bytes`` (XLA cost analysis) and the rates derived
+    from them have no source here and are left out."""
     compile_s: float            # first-call wall (kernel build, cuBLAS
     #                             init, autodiff set-up, the solve)
     execute_s: float            # median steady wall
     reps: int
-    flops: Optional[float]
-    hbm_bytes: Optional[float]
     total_iters: Optional[int]  # summed iter_count if the result has one
     iters_per_s: Optional[float]
     backend: str                # device type and the card's name
@@ -143,8 +152,8 @@ def profile_solve(fn: Callable, *args, reps: int = 5) -> SolveProfile:
     if dev is not None and dev.type == "cuda":
         backend = f"cuda ({torch.cuda.get_device_name(dev)})"
     return SolveProfile(
-        compile_s=compile_s, execute_s=execute_s, reps=reps, flops=None,
-        hbm_bytes=None, total_iters=total_iters, iters_per_s=iters_per_s, backend=backend)
+        compile_s=compile_s, execute_s=execute_s, reps=reps,
+        total_iters=total_iters, iters_per_s=iters_per_s, backend=backend)
 
 
 def iteration_report(result, i: int = 0) -> str:

@@ -27,9 +27,13 @@ from pyipm_tpu_torch import IPMConfig, make_problem, solve  # noqa: E402
 from pyipm_tpu_torch import cli  # noqa: E402
 from pyipm_tpu_torch.core.solver import BatchSolver  # noqa: E402
 from pyipm_tpu_torch.interop import reference_problem  # noqa: E402
+from pyipm_tpu_torch.ops.large_ldlt import (  # noqa: E402
+    bwd_sweep_blocks, bwd_sweep_panels, panel_ldlt,
+)
+from pyipm_tpu_torch.utils import profiling  # noqa: E402
 from pyipm_tpu_torch.utils.profiling import (  # noqa: E402
-    SCOPES, SolveProfile, enable_nan_debugging, iteration_report,
-    profile_solve, trace,
+    NOT_IN_SMALL_SOLVE, SCOPES, SolveProfile, enable_nan_debugging,
+    iteration_report, profile_solve, trace,
 )
 
 
@@ -78,7 +82,7 @@ def test_profile_solve_and_iteration_report():
     assert isinstance(prof, SolveProfile)
     assert prof.compile_s > 0 and prof.execute_s > 0
     assert prof.total_iters and prof.total_iters > 0
-    assert prof.flops is None and prof.backend == "cpu"
+    assert prof.backend == "cpu" and not hasattr(prof, "flops")
     assert "execute" in str(prof)
     res = solver(x0)
     rep = iteration_report(res, i=1)
@@ -88,19 +92,112 @@ def test_profile_solve_and_iteration_report():
     assert "no metrics recorded" in iteration_report(off(x0))
 
 
-def test_scopes_in_a_profiler_trace(tmp_path):
-    """All six phase scopes appear in the exported trace of one solve
-    (problem 7; 'ldlt' to put the factor and solve scopes of the full KKT
-    system in it too): the counterpart of JAX :165's lowered HLO."""
+def _solve_7(solver):
+    solve(reference_problem(7).make(), torch.as_tensor(_x0()),
+          IPMConfig(verbosity=0, linear_solver=solver))
+
+
+def _soc_and_wrappers():
+    """Problem 4's solve (its line search takes the SOC) and kernels 3-5's
+    wrappers on the smallest CPU operands they take."""
+    res = solve(reference_problem(4).make(), torch.as_tensor(_x0(4)),
+                IPMConfig(verbosity=0))
+    assert int(res.signal) == 1
+    f64 = dict(dtype=torch.float64)
+    eye = torch.eye(128, **f64)
+    panel_ldlt(torch.ones((1, 1), **f64))
+    bwd_sweep_panels(eye, torch.ones(128, **f64), eye[None])
+    bwd_sweep_blocks(torch.ones((1, 1), **f64), torch.ones(1, **f64),
+                     torch.ones((1, 1, 1), **f64))
+
+
+def _every_scope():
     for solver in ("condensed", "ldlt"):
-        with trace(str(tmp_path / solver)):
-            solve(reference_problem(7).make(), torch.as_tensor(_x0()),
-                  IPMConfig(verbosity=0, linear_solver=solver))
-        (path,) = glob.glob(str(tmp_path / solver / "*.json"))
-        with open(path) as fh:
-            names = {e.get("name") for e in json.load(fh)["traceEvents"]}
-        missing = [s for s in SCOPES if s not in names]
+        _solve_7(solver)
+    _soc_and_wrappers()
+
+
+def _events(tmp_path, name, fn):
+    """The scope events ``fn()`` leaves in an exported trace: {name: [(ts,
+    end, tid)]}."""
+    with trace(str(tmp_path / name)):
+        fn()
+    (path,) = glob.glob(str(tmp_path / name / "*.json"))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("name") in SCOPES and e.get("ph") == "X":
+            out.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"], e.get("tid")))
+    return out
+
+
+def _inside(inner, outer):
+    """Every range of ``inner`` lies in a range of ``outer`` on its
+    thread."""
+    return all(any(a >= oa and b <= ob and t == ot for oa, ob, ot in outer)
+               for a, b, t in inner)
+
+
+def test_scopes_in_a_profiler_trace(tmp_path):
+    """Every scope of ``SCOPES`` appears in the exported traces: each solve
+    of problem 7 ('condensed', and 'ldlt' to put the factor and solve
+    scopes of the full KKT system in it too) opens all but the SOC's and
+    kernels 3-5's, which problem 4's solve and the wrappers called alone
+    open.  The Hessian's scope nests in the direction's, which nests in
+    the loop's.  The counterpart of JAX :165's lowered HLO."""
+    seen = set()
+    for solver in ("condensed", "ldlt"):
+        ev = _events(tmp_path, solver, lambda: _solve_7(solver))
+        missing = [s for s in SCOPES
+                   if s not in ev and s not in NOT_IN_SMALL_SOLVE]
         assert not missing, (solver, missing)
+        assert _inside(ev["ipm-hessian"], ev["ipm-direction"]), solver
+        assert _inside(ev["ipm-direction"], ev["ipm-loop"]), solver
+        seen |= set(ev)
+    ev = _events(tmp_path, "soc", _soc_and_wrappers)
+    assert _inside(ev["ipm-soc"], ev["ipm-line-search"])
+    missing = [s for s in SCOPES if s not in seen | set(ev)]
+    assert not missing, missing
+
+
+def test_every_scope_goes_through_annotate():
+    """The benchmark's traced run replaces ``annotate`` in every module of
+    the package that holds it (``portbench/tracing.py``'s
+    ``record_spans``) and times a scope on the device its call names: the
+    solves and wrapper calls of the trace test enter every scope of
+    ``SCOPES``, and no other, through such a replacement, each with the
+    device of its tensors."""
+    import sys
+
+    orig = profiling.annotate
+    entered = []
+
+    @contextlib.contextmanager
+    def recording(name, device=None):
+        entered.append((name, device))
+        with orig(name, device):
+            yield
+
+    patched = []
+    try:
+        for mod_name, mod in list(sys.modules.items()):
+            if mod is None or not (mod_name == "pyipm_tpu_torch" or
+                                   mod_name.startswith("pyipm_tpu_torch.")):
+                continue
+            for attr, val in list(vars(mod).items()):
+                if val is orig:
+                    setattr(mod, attr, recording)
+                    patched.append((mod, attr))
+        _every_scope()
+    finally:
+        for mod, attr in patched:
+            setattr(mod, attr, orig)
+    assert {n for n, _ in entered} == set(SCOPES)
+    bad = {n for n, d in entered
+           if d is None or torch.device(d).type != "cpu"}
+    assert not bad, bad
 
 
 def _poisoned():
