@@ -29,17 +29,21 @@ from typing import Callable, Optional
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
+from pyipm_tpu_torch import _sync
 from pyipm_tpu_torch.utils import profiling
 
 
 # ``vmap(hessian(f))`` (forward over ``jacrev``, the JAX package's
-# ``jax.hessian``) copies per-instance data that meets the D tangents, such
-# as S in x'Sx, once for each tangent when B > 1: B D^3 elements of x's
-# dtype, 477 GiB for 1,024 portfolios of 500 assets in float32.  Forward
-# over ``grad`` makes no such copy and is the same derivative; it is taken
-# where that estimate passes this many bytes, so every smaller batch (each
-# fleet of up to 2,048 instances of D <= 96 among them) keeps ``hessian``'s
-# bits.
+# ``jax.hessian``) moves B D^3 elements of x's dtype where per-instance
+# data meets the D tangents, such as S in x'Sx or P in x'Px: at B > 1
+# copies of the matrix, one for each tangent (477 GiB for 1,024 portfolios
+# of 500 assets in float32); at B = 1 re-reads of the one matrix, a
+# matrix-vector product for each tangent (512 GiB for one dense NLP of
+# D = 4,096 in float64).  Forward over ``grad`` is the same derivative as
+# matrix-matrix products; it is taken where that estimate passes this many
+# bytes, so every smaller problem (each fleet of up to 2,048 instances of
+# D <= 96, and one instance of D <= 1,024 in float64, among them) keeps
+# ``hessian``'s bits.  ``_sync.COUNTS`` counts the calls of each route.
 HESS_COPY_BYTES = 8 << 30
 
 
@@ -47,8 +51,10 @@ def _hess_map(fn, x, *rest):
     """The (B, D, D) Hessians of a per-instance scalar ``fn(x, *rest)``
     over a (B, D) batch."""
     B, D = x.shape
-    if B > 1 and B * D ** 3 * x.element_size() > HESS_COPY_BYTES:
+    if B * D ** 3 * x.element_size() > HESS_COPY_BYTES:
+        _sync.COUNTS["hess_over_grad"] += 1
         return vmap(jacfwd(grad(fn)))(x, *rest)
+    _sync.COUNTS["hess_hessian"] += 1
     return vmap(hessian(fn))(x, *rest)
 
 

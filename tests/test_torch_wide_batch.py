@@ -241,32 +241,110 @@ def test_portfolio_wide_fleet_matches_jax(dtype):
         assert float((np.abs(x - jx) / (1 + np.abs(jx))).max()) <= 2e-3
 
 
-def test_hessians_past_the_copy_budget_match_hessian(monkeypatch):
-    """Past HESS_COPY_BYTES (phase 26's 500 assets: 477 GiB of copies
-    under ``hessian``) the autodiff Hessians are taken forward over
-    ``grad``: on the portfolio family the same bits as ``hessian``."""
-    from pyipm_tpu_torch.core import problem as P
-    B, D = 10, 60
-    arr = app.sample_portfolio_arrays(3, B, D, np.float64)
-    data = interop.portfolio_data_from_numpy(arr, device="cpu")
-    prob = app.make_portfolio_problem(D)
-    x = app.portfolio_x0(B, D, np.float64, "cpu") + 1e-3 * torch.as_tensor(
-        np.random.default_rng(0).standard_normal((B, D)))
-    lda = torch.as_tensor(np.random.default_rng(1).random((B, 1 + 2 * D)))
+def _hess_family(family, B):
+    """(problem, x, lda, data) of ``family`` at batch B: the portfolio
+    family of D = 60, or the dense NLP of ``test_torch_dense_nlp`` (D =
+    200, M = 16, 32 features)."""
+    from pyipm_tpu_torch.models import random_nlp
+    rng = np.random.default_rng(0)
+    if family == "portfolio":
+        D = 60
+        arr = app.sample_portfolio_arrays(3, B, D, np.float64)
+        data = interop.portfolio_data_from_numpy(arr, device="cpu")
+        prob = app.make_portfolio_problem(D)
+        x = app.portfolio_x0(B, D, np.float64, "cpu") + 1e-3 * torch.as_tensor(
+            rng.standard_normal((B, D)))
+    else:
+        D, neq = 200, 16
+        arr = random_nlp.sample_dense_arrays(0, D, neq, 32, np.float64)
+        one = interop.dense_from_numpy(arr, device="cpu")
+        data = type(one)(*(t.unsqueeze(0).expand(B, *t.shape)
+                           for t in one))
+        prob = random_nlp.make_dense_nlp_problem(D, neq)
+        x = 0.3 * torch.as_tensor(rng.standard_normal((B, D)))
+    lda = torch.as_tensor(np.random.default_rng(1).random(
+        (B, prob.neq + prob.nineq)))
+    return prob, x, lda, data
 
-    def all_three():
-        return (prob.hess_f(x, data), prob.hess_ce(x, lda, data),
-                prob.hess_ci(x, lda, data))
+
+@pytest.mark.parametrize("family,B", [("portfolio", 10), ("dense", 1)])
+def test_hessians_past_the_copy_budget_match_hessian(monkeypatch, family, B):
+    """Past HESS_COPY_BYTES (phase 26's 500 assets: 477 GiB of copies
+    under ``hessian``; one dense NLP of D = 4,096 in float64: 512 GiB of
+    re-reads of P) the autodiff Hessians are taken forward over ``grad``:
+    the same bits as ``hessian``, on a fleet of portfolios and on one
+    dense NLP.  Under the budget the route stays ``hessian``, and
+    ``_sync.COUNTS`` counts each call's route."""
+    from pyipm_tpu_torch.core import problem as P
+    prob, x, lda, data = _hess_family(family, B)
+    D = prob.nvar
+
+    def every_term():
+        out = [prob.hess_f(x, data)]
+        if prob.neq:
+            out.append(prob.hess_ce(x, lda, data))
+        if prob.nineq:
+            out.append(prob.hess_ci(x, lda, data))
+        return out
 
     calls = []
     for name in ("hessian", "grad"):
         fn = getattr(P, name)
         monkeypatch.setattr(P, name, lambda f, fn=fn, name=name: (
             calls.append(name), fn(f))[1])
-    whole = all_three()
-    assert calls == ["hessian"] * 3
+    for k in _sync.COUNTS:
+        monkeypatch.setitem(_sync.COUNTS, k, 0)
+    whole = every_term()
+    n = len(whole)
+    assert calls == ["hessian"] * n
+    assert (_sync.COUNTS["hess_hessian"], _sync.COUNTS["hess_over_grad"]) \
+        == (n, 0)
     monkeypatch.setattr(P, "HESS_COPY_BYTES", B * D ** 3 * 8 - 1)
-    past = all_three()
-    assert calls[3:] == ["grad"] * 3
+    past = every_term()
+    assert calls[n:] == ["grad"] * n
+    assert (_sync.COUNTS["hess_hessian"], _sync.COUNTS["hess_over_grad"]) \
+        == (n, n)
     for a, b in zip(whole, past):
-        assert a.shape == (B, D, D) and torch.equal(a, b)
+        assert a.shape == (B, D, D)
+        assert _rel(b.numpy(), a.numpy()) <= 1e-12 and torch.equal(a, b)
+
+
+def test_one_instance_hessian_past_the_budget_has_no_tangent_batched_matvec(
+        monkeypatch):
+    """At B = 1 past HESS_COPY_BYTES, ``hess_lagrangian`` of the dense NLP
+    computes no matrix product whose batch is the D tangents with a trailing
+    dimension of 1: ``hessian``'s one matrix-vector product a tangent over
+    the unbatched P (a GEMV that re-reads P D times), which the same
+    recorder finds under the budget."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from pyipm_tpu_torch.core import problem as P
+    prob, x, lda, data = _hess_family("dense", 1)
+    D = prob.nvar
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket in (torch.ops.aten.bmm,
+                                       torch.ops.aten.baddbmm,
+                                       torch.ops.aten.mm,
+                                       torch.ops.aten.mv):
+                self.shapes.append([tuple(a.shape) for a in args
+                                    if isinstance(a, torch.Tensor)])
+            return func(*args, **(kwargs or {}))
+
+    def tangent_matvecs():
+        with Products() as rec:
+            H = prob.hess_lagrangian(x, lda, data)
+        return H, [s for s in rec.shapes
+                   if len(s[-1]) == 3 and s[-1][0] == D and s[-1][2] == 1]
+
+    below, found = tangent_matvecs()
+    assert found, "the recorder misses hessian's tangent-batched products"
+    monkeypatch.setattr(P, "HESS_COPY_BYTES", D ** 3 * 8 - 1)
+    past, found = tangent_matvecs()
+    assert found == []
+    assert torch.equal(below, past)
